@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's prob_gs6400 inference on one NVIDIA GPU.
+"""Drive the PyTorch port's prob_gs6400 inference and training step on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,14 +9,27 @@ Phases (each raises on failure, so the script exits nonzero):
 1. build    compile the port's CUDA kernels (csrc/*.cu, nvcc, sm_90a);
 2. forward  one warm-up frame of the full prob_gs6400 forward at full
             width (6 x 864 x 1600 images, 6400 Gaussians, 200 x 200 x 16
-            grid, random weights from a seed), capturing each kernel's
-            inputs; then one counted frame (every launch counter set to 0
-            just before, read just after: 52 DCN, 1 FPS, 4 deformable,
-            1 splat launches) and three timed frames;
-3. kernels  each kernel against its plain PyTorch version on the captured
-            inputs, with its tolerance; kernel, plain and bound times;
-4. small    the tiny config end to end on the GPU (towers without DCN,
-            fp32) against the same model run on the CPU.
+            grid, random weights from a seed) under inference mode,
+            capturing each kernel's inputs; then one counted frame (every
+            launch counter set to 0 just before, read just after: 52 DCN,
+            1 FPS, 4 deformable, 1 splat launches, no backward kernel) and
+            three timed frames;
+3. kernels  each forward kernel against its plain PyTorch version on the
+            captured inputs, with its tolerance; kernel, plain and bound
+            times;
+4. small    the tiny config's forward on the GPU (towers without DCN,
+            fp32) against the same model run on the CPU;
+5. train    the full-width train step (forward with dropout, losses,
+            backward, clipping, AdamW) on the same model: one warm-up step
+            capturing the backward kernels' inputs, one counted step (the
+            forward kernels as in phase 2 plus 52 DCN, 4 deformable and 1
+            splat backward launches), three timed steps and one profiled
+            step for the device's idle share; finite loss terms and
+            gradient norm, trained parameters moved, frozen ones unchanged
+            to the bit;
+6. backward each backward kernel against its plain backward version on the
+            captured inputs and cotangents;
+7. small    two tiny-config train steps on the GPU against the CPU.
 
 The second-to-last lines are the card's name and power limit and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -24,12 +38,31 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
 
 FRAMES = 3
-EXPECTED_LAUNCHES = {"dcn": 52, "fps": 1, "deformable": 4, "splat": 1}
+STEPS = 3
+NO_BACKWARD = {"dcn_bwd": 0, "deformable_bwd": 0, "splat_bwd": 0}
+EXPECTED_LAUNCHES = {"dcn": 52, "fps": 1, "deformable": 4, "splat": 1,
+                     **NO_BACKWARD}
+# a train step without checkpointing: the forward's kernels once, and each
+# backward kernel once per forward launch
+EXPECTED_TRAIN_LAUNCHES = {"dcn": 52, "fps": 1, "deformable": 4, "splat": 1,
+                           "dcn_bwd": 52, "deformable_bwd": 4,
+                           "splat_bwd": 1}
+# tolerances of the backward kernels against their plain versions: a bf16
+# output may differ by a rounding flip of its fp32 sum (two bf16 ulps at the
+# top of the range); fp32 gradients summed over thousands of terms in
+# another order, with atomics whose order changes from run to run, to 1e-3
+# of the largest |ref|
+BF16_TOL = 2.0 ** -7
+SUM_TOL = 1e-3
+# the tiny train step, GPU against CPU: fp32 sums in another order through
+# the whole model and two optimizer steps
+TINY_RTOL = 1e-3
 # NVIDIA H100 SXM data sheet peaks (dense), for the roofline bounds
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
@@ -137,8 +170,9 @@ def main() -> int:
 
     def frame(seed):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        return model(batch["imgs"], batch["projection_mat"],
-                     batch["image_wh"], batch["occ_xyz"], generator=gen)
+        with torch.inference_mode():
+            return model(batch["imgs"], batch["projection_mat"],
+                         batch["image_wh"], batch["occ_xyz"], generator=gen)
 
     cap = Capture([
         (dcn, "deform_conv2d_cuda", lambda x, *a: ("dcn", x.shape[-1])),
@@ -189,20 +223,42 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions on the captured inputs
     rows = []
-    for key in (("dcn", 256), ("dcn", 512), ("fps",), ("deformable",),
-                ("splat",)):
-        if key not in cap.calls:
-            raise RuntimeError(f"no captured call for {key}")
-        rows.append(check_kernel(key, cap.calls[key], launches, cfg,
-                                 dcn, fps, deformable, splat))
-    del cap
+    with torch.inference_mode():
+        for key in (("dcn", 256), ("dcn", 512), ("fps",), ("deformable",),
+                    ("splat",)):
+            if key not in cap.calls:
+                raise RuntimeError(f"no captured call for {key}")
+            rows.append(check_kernel(key, cap.calls[key], launches, cfg,
+                                     dcn, fps, deformable, splat))
+    del cap, out
 
     # ---- 4. the tiny config end to end, GPU against CPU
     check_small(get_config, build_segmentor, synthetic_batch)
 
+    # ---- 5. the full-width train step
+    train = train_phase(cfg, model, batch, _lib, dcn, deformable, splat)
+
+    # ---- 6. backward kernels against their plain versions; without
+    # autograd, since the captured tensors may require grad (saved inputs
+    # of an autograd Function): the plain versions of K5 and K6 enable it
+    # on copies of their own
+    for key in (("dcn_bwd", 256), ("dcn_bwd", 512), ("deformable_bwd",),
+                ("splat_bwd",)):
+        if key not in train["calls"]:
+            raise RuntimeError(f"no captured call for {key}")
+        with torch.no_grad():
+            rows.append(check_backward(key, train["calls"][key],
+                                       train["launches"], dcn, deformable,
+                                       splat))
+    del train["calls"]
+
+    # ---- 7. the tiny train step, GPU against CPU
+    check_small_train(get_config, build_segmentor, synthetic_batch)
+
     kernels = [r for r in rows if r.pop("report")]
     log(json.dumps({"card": card, "frame_ms": frame_ms,
-                    "frame_wall_ms": wall_ms}))
+                    "frame_wall_ms": wall_ms,
+                    **{k: v for k, v in train.items() if k != "launches"}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -368,8 +424,10 @@ def check_small(get_config, build_segmentor, synthetic_batch):
             model.lifter.projection[1].bias[-1] = -1e4
         draws = (torch.zeros(1, 6 * 8 * 12, dtype=torch.long, device=dev),
                  torch.zeros(1, 6 * 8 * 12, 3, device=dev))
-        out = model(batch["imgs"], batch["projection_mat"],
-                    batch["image_wh"], batch["occ_xyz"], lifter_draws=draws)
+        with torch.inference_mode():
+            out = model(batch["imgs"], batch["projection_mat"],
+                        batch["image_wh"], batch["occ_xyz"],
+                        lifter_draws=draws)
         outs.append({k: (v[-1] if isinstance(v, list) else v)
                      for k, v in out.items()
                      if k in ("pred_occ", "bin_logits", "final_occ")})
@@ -387,6 +445,287 @@ def check_small(get_config, build_segmentor, synthetic_batch):
         f"(both required >= 0.99)")
     if not (close >= 0.99 and agree >= 0.99):
         raise RuntimeError("tiny config: GPU and CPU runs disagree")
+
+
+def train_phase(cfg, model, batch, _lib, dcn, deformable, splat):
+    """The full-width train step on ``model``: warm-up (capturing the
+    backward kernels' inputs), a counted step, timed steps and a profiled
+    step. Raises on wrong launch counts, non-finite metrics, a trained
+    parameter that did not move or a frozen one that changed."""
+    import torch
+    from gaussianformer_tpu_torch.profile_forward import device_busy_ms
+    from gaussianformer_tpu_torch.train.optim import (build_optimizer,
+                                                      frozen_prefixes,
+                                                      param_labels)
+    from gaussianformer_tpu_torch.train.step import build_loss, train_step
+
+    # the schedule's length shapes only its cosine part, which the few
+    # warm-up steps here never reach
+    opt, schedule = build_optimizer(model, cfg, 10000)
+    loss_fn = build_loss(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    labels = param_labels(model, frozen_prefixes(cfg))
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(tag):
+        metrics = train_step(model, opt, schedule, loss_fn, batch, gen)
+        vals = {k: v.item() for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"train step {tag}: non-finite {vals}")
+        return vals
+
+    cap = Capture([
+        (dcn, "deform_conv2d_backward_cuda",
+         lambda x, *a: ("dcn_bwd", x.shape[-1])),
+        (deformable, "deformable_aggregation_backward_cuda",
+         lambda *a: ("deformable_bwd",)),
+        (splat, "splat_backward_cuda", lambda *a: ("splat_bwd",)),
+    ])
+    t0 = time.perf_counter()
+    vals = step("warm-up")
+    torch.cuda.synchronize()
+    cap.restore()
+    log(f"# train warm-up step: {time.perf_counter() - t0:.2f} s; {vals}")
+
+    _lib.reset_launches()
+    vals = step("counted")
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    log(f"# launches in one train step: {launches}; {vals}")
+    if launches != EXPECTED_TRAIN_LAUNCHES:
+        raise RuntimeError(f"train launch counts {launches} != "
+                           f"{EXPECTED_TRAIN_LAUNCHES}")
+
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start_ev.record()
+    for i in range(STEPS):
+        vals = step(f"timed {i}")
+    end_ev.record()
+    torch.cuda.synchronize()
+    step_ms = start_ev.elapsed_time(end_ev) / STEPS
+    step_wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"# train step: {step_ms:.3f} ms/step (CUDA events), "
+        f"{step_wall_ms:.3f} ms/step host wall, {STEPS} steps, batch 1; "
+        f"peak device memory {peak_gib:.2f} GiB; last {vals}")
+
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        start_ev.record()
+        step("profiled")
+        end_ev.record()
+        torch.cuda.synchronize()
+    traced_ms = start_ev.elapsed_time(end_ev)
+    busy_ms = device_busy_ms(prof.key_averages())
+    # the profiler slows the host far more than the device, so the idle
+    # share is the device's busy time against an unprofiled step
+    idle = None if busy_ms == 0 else 1.0 - busy_ms / step_ms
+    log(f"# profiled train step: {traced_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms; idle share against the unprofiled "
+        f"{step_ms:.3f} ms/step: "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+
+    frozen_changed, still = [], []
+    for n, prm in model.named_parameters():
+        same = torch.equal(prm.detach(), start[n])
+        if labels[n] == "frozen" and not same:
+            frozen_changed.append(n)
+        elif labels[n] != "frozen" and same:
+            still.append(n)
+    n_frozen = sum(lab == "frozen" for lab in labels.values())
+    log(f"# parameters: {len(labels) - n_frozen} trained leaves all moved: "
+        f"{not still}; {n_frozen} frozen leaves unchanged to the bit: "
+        f"{not frozen_changed}")
+    if frozen_changed or still:
+        raise RuntimeError(f"frozen leaves changed: {frozen_changed[:5]}; "
+                           f"trained leaves that did not move: {still[:5]}")
+    del start, opt
+    return dict(calls=cap.calls, launches=launches, step_ms=step_ms,
+                step_wall_ms=step_wall_ms, train_peak_gib=peak_gib,
+                train_idle_share=idle, train_loss=vals)
+
+
+def _max_err(name, got, ref, tol_rel):
+    """Max abs error of ``got`` against ``ref`` and the tolerance
+    ``tol_rel * max|ref|``; the dtypes and shapes must agree."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise RuntimeError(f"{name}: {got.dtype}{tuple(got.shape)} against "
+                           f"{ref.dtype}{tuple(ref.shape)}")
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, tol_rel * ref.float().abs().max().item()
+
+
+def check_backward(key, call, launches, dcn, deformable, splat):
+    """Backward kernel vs its plain backward version on one captured call;
+    returns its kernels-line row (the stage-4 DCN shape is printed but
+    not reported, as for K1)."""
+    import torch
+    fn, args = call
+    name = key[0]
+    if name == "dcn_bwd":
+        x, offset, mask, weight, g_out = args
+        b, h, w, cin = x.shape
+        cout = weight.shape[-1]
+        plain = dcn.deform_conv2d_backward_plain
+        outs = ("g_x", "g_offset", "g_mask", "g_weight")
+        tols = (BF16_TOL, SUM_TOL, SUM_TOL, BF16_TOL)
+        m = b * h * w
+        # the two contractions g_cols = g_out W^T and g_W = cols^T g_out
+        flops = 2 * (2.0 * m * 9 * cin * cout)
+        nbytes = (2 * x.numel() + m * 27 * 4 + 2 * weight.numel()
+                  + 2 * g_out.numel()                       # inputs
+                  + 2 * x.numel() + m * 27 * 4 + 2 * weight.numel())
+        peak = PEAK_BF16
+        row = dict(name="deform_conv2d_backward", route="cuda",
+                   source="gaussianformer_tpu_torch/csrc/dcn_bwd.cu",
+                   replaces="gaussianformer_tpu/ops/pallas/"
+                            "dcn_kernel.py:463",
+                   launches=launches["dcn_bwd"], shape=[b, h, w, cin, cout],
+                   report=cin == 256)
+    elif name == "deformable_bwd":
+        feats, pts, wts, num_pts, g_out = args
+        plain = deformable.deformable_aggregation_backward_plain
+        outs = tuple(f"g_feature_maps[{i}]" for i in range(len(feats))) + (
+            "g_points_2d", "g_weights")
+        bf16 = feats[0].dtype == torch.bfloat16
+        tols = (BF16_TOL if bf16 else SUM_TOL,) * len(feats) + (SUM_TOL,
+                                                               SUM_TOL)
+        c = feats[0].shape[-1]
+        inside = ((pts[..., 0] > 0) & (pts[..., 0] < 1) & (pts[..., 1] > 0)
+                  & (pts[..., 1] < 1)).sum().item()
+        # per in-image (key point, cam) pair and level: 4 corners x C of
+        # the dot with g_out and of the scattered product, plus the corner
+        # weights and their derivatives
+        flops = inside * len(feats) * (4 * c * 4 + 40)
+        fbytes = sum(f.numel() * f.element_size() for f in feats)
+        nbytes = (2 * fbytes + 2 * (pts.numel() * 4 + wts.numel() * 4)
+                  + g_out.numel() * 4)
+        peak = PEAK_FP32
+        row = dict(name="deformable_aggregation_backward", route="cuda",
+                   source="gaussianformer_tpu_torch/csrc/deformable_bwd.cu",
+                   replaces="gaussianformer_tpu/ops/pallas/"
+                            "deformable_kernel.py:417",
+                   launches=launches["deformable_bwd"],
+                   shape=[list(pts.shape), [list(f.shape[2:4])
+                                            for f in feats]],
+                   inside_pairs=inside, report=True)
+    else:
+        points, gdata, opa, sem, box, gl, scalars, grid = args
+        plain = splat.splat_backward_plain
+        outs = ("g_means", "g_opacities", "g_semantics", "g_cov_inv6")
+        tols = (SUM_TOL,) * 4
+        pairs = splat_pairs(points, box, grid)
+        n, c = gl.shape
+        p = gdata.shape[0]
+        # per (voxel, Gaussian) pair in the AABB: displacement and
+        # quadratic form (~18), exp (~4), the C-wide dot and gsem
+        # multiply-adds (4C), gpower with its division (~10), the nine
+        # moments (~24), gw and the weight (~4)
+        flops = pairs * (60 + 4 * c)
+        nbytes = (n * 12 + gl.numel() * 4 + scalars.numel() * 4
+                  + gdata.numel() * 4 + opa.numel() * 4 + sem.numel() * 4
+                  + box.numel() * 4 + p * (3 + 1 + c + 6) * 4)
+        peak = PEAK_FP32
+        row = dict(name="splat_prob_backward", route="cuda",
+                   source="gaussianformer_tpu_torch/csrc/splat_bwd.cu",
+                   replaces="gaussianformer_tpu/ops/pallas/"
+                            "splat_bwd_kernel.py:196",
+                   launches=launches["splat_bwd"], shape=[n, p],
+                   aabb_pairs=pairs, report=True)
+    got = fn(*args)
+    ref = plain(*args)
+    if name == "deformable_bwd":
+        got = (*got[0], got[1], got[2])
+        ref = (*ref[0], ref[1], ref[2])
+    errors = {}
+    for out_name, gt, rf, tol_rel in zip(outs, got, ref, tols):
+        errors[out_name] = _max_err(out_name, gt, rf, tol_rel)
+    del got, ref
+    ms = cuda_ms(lambda: fn(*args), 10)
+    plain_ms = cuda_ms(lambda: plain(*args), 1)
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    row.update(max_abs_err=max(e for e, _ in errors.values()),
+               errors={k: {"max_abs_err": e, "tol": t}
+                       for k, (e, t) in errors.items()},
+               ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=None)
+    log(f"# {row['name']} {row['shape']}: "
+        + ", ".join(f"{k} {e:.3e} (tol {t:.3e})"
+                    for k, (e, t) in errors.items())
+        + f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    bad = {k: e for k, (e, t) in errors.items() if not e <= t}
+    if bad:
+        raise RuntimeError(f"{row['name']} disagrees with its plain "
+                           f"version: {bad}")
+    return row
+
+
+def check_small_train(get_config, build_segmentor, synthetic_batch):
+    """Two tiny-config train steps (fp32 towers without DCN, dropout off,
+    since the devices draw different numbers) on the GPU, with the
+    forward and backward kernels, against the CPU run of the same weights
+    with the plain versions: loss terms and gradient norm within
+    TINY_RTOL, and at least 99% of the gradient elements within
+    TINY_RTOL * (|g_cpu| + RMS of the leaf's g_cpu).
+
+    The spconv grid is one voxel here. The synthetic cameras put many of
+    the tiny lifter's candidates exactly on whole metres, the spconv voxel
+    boundaries, and the devices' sigmoid round trips of the anchors differ
+    in the last bits, so an anchor could change voxel between them; one
+    such flip changes every encoder gradient."""
+    import dataclasses
+    import torch
+    from gaussianformer_tpu_torch.train.optim import build_optimizer
+    from gaussianformer_tpu_torch.train.step import build_loss, train_step
+    cfg = dataclasses.replace(get_config("prob_gs6400_tiny"),
+                              stage_with_dcn=(False,) * 4, attn_drop=0.0,
+                              ffn_drop=0.0,
+                              spconv_grid_size=(100.0, 100.0, 8.0))
+    g = cfg.grid
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model = build_segmentor(cfg, device=dev, seed=1)
+        batch = synthetic_batch(1, cfg.input_size, (g.H, g.W, g.D), seed=1,
+                                device=dev)
+        # as in check_small: no random draw takes effect on either device
+        model.lifter.deterministic_sampling = True
+        model.lifter.depth_min, model.lifter.depth_max = 1.0, 2.0
+        with torch.no_grad():
+            model.lifter.projection[1].bias[-1] = -1e4
+        opt, schedule = build_optimizer(model, cfg, 10)
+        loss_fn = build_loss(cfg)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        metrics = [{k: v.item() for k, v in train_step(
+            model, opt, schedule, loss_fn, batch, gen).items()}
+            for _ in range(2)]
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        runs.append((metrics, grads))
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = runs
+    worst = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                for a, b in zip(m_cpu, m_gpu) for k in a)
+    if set(g_cpu) != set(g_gpu):
+        raise RuntimeError("tiny train: the devices' gradient leaves differ")
+    within = total = 0
+    for n, ref in g_cpu.items():
+        tol = TINY_RTOL * (ref.abs() + ref.square().mean().sqrt())
+        within += int(((g_gpu[n] - ref).abs() <= tol).sum())
+        total += ref.numel()
+    share = within / total
+    log(f"# tiny train GPU vs CPU: worst relative difference of the loss "
+        f"terms and grad_norm over 2 steps {worst:.3e} (required <= "
+        f"{TINY_RTOL}); {share:.6f} of {total} gradient elements within "
+        f"tolerance (required >= 0.99); GPU step 2 {m_gpu[-1]}")
+    if not (worst <= TINY_RTOL and share >= 0.99):
+        raise RuntimeError("tiny train step: GPU and CPU runs disagree")
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,3 +1,5 @@
-from .nuscenes import GaussianFormerConfig, get_config
+from .nuscenes import (MANUAL_CLASS_WEIGHT, GaussianFormerConfig,
+                       OptimConfig, get_config)
 
-__all__ = ["GaussianFormerConfig", "get_config"]
+__all__ = ["MANUAL_CLASS_WEIGHT", "GaussianFormerConfig", "OptimConfig",
+           "get_config"]

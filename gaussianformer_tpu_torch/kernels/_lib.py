@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel since the last :func:`reset_launches`
-LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat": 0}
+LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat": 0,
+            "dcn_bwd": 0, "deformable_bwd": 0, "splat_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -127,6 +128,16 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
                                     ctypes.POINTER(F), F, I, I, I,
                                     P, P, P, P]
     so.gf_splat_forward.restype = I
+    so.gf_dcn_backward.argtypes = [P, P, I, P, I, P, P, P, P, P, P,
+                                   I, I, I, I, I, P]
+    so.gf_dcn_backward.restype = I
+    so.gf_deformable_backward.argtypes = [
+        ctypes.POINTER(P), ctypes.POINTER(P), ctypes.POINTER(I),
+        ctypes.POINTER(I), I, I, P, P, P, P, P, I, I, I, I, I, I, P]
+    so.gf_deformable_backward.restype = I
+    so.gf_splat_backward.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
+                                     P, P, P, P, P]
+    so.gf_splat_backward.restype = I
     return so
 
 

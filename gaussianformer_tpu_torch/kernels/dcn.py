@@ -1,9 +1,13 @@
-"""K1: modulated deformable convolution v2 (3x3, stride 1, pad 1), forward.
+"""K1 / K5: modulated deformable convolution v2 (3x3, stride 1, pad 1),
+forward and backward.
 
-Kernel: ``csrc/dcn.cu`` (replaces the TPU kernel
-``gaussianformer_tpu/ops/pallas/dcn_kernel.py::deform_conv2d_pallas_fwd``).
-Plain version: :func:`deform_conv2d_plain`, the gather form of
-``gaussianformer_tpu/ops/dcn.py::deform_conv2d``.
+Kernels: ``csrc/dcn.cu`` (K1, replaces the TPU kernel
+``gaussianformer_tpu/ops/pallas/dcn_kernel.py::deform_conv2d_pallas_fwd``)
+and ``csrc/dcn_bwd.cu`` (K5, replaces ``deform_conv2d_pallas_bwd``).
+Plain versions: :func:`deform_conv2d_plain`, the gather form of
+``gaussianformer_tpu/ops/dcn.py::deform_conv2d``, and
+:func:`deform_conv2d_backward_plain`, autograd through it.
+:class:`DeformConv2dFunction` ties the two together for training.
 
 Layouts follow the JAX package: ``x`` NHWC, ``offset`` [B, H, W, 18] with
 (dy, dx) per tap (tap t = ky * 3 + kx), ``mask`` [B, H, W, 9] already
@@ -18,11 +22,14 @@ from . import _lib
 
 
 def deform_conv2d_plain(x, offset, mask, weight, epilogue=None,
-                        rows: int = 8):
+                        rows: int = 8, sample_dtype=None):
     """Exact gather formulation, chunked over ``rows`` output rows.
 
-    Samples are summed in fp32, rounded to ``x.dtype`` (as the kernel
-    feeds its bf16 MMAs) and contracted with the weights in fp32."""
+    Samples are summed in fp32, rounded to ``sample_dtype`` (``x.dtype`` by
+    default, as the kernel feeds its bf16 MMAs) and contracted with the
+    weights in fp32. The rounding passes gradients straight through, so
+    autograd through this function sums in fp32 as the backward kernel
+    does."""
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
     dev = x.device
@@ -56,7 +63,7 @@ def deform_conv2d_plain(x, offset, mask, weight, epilogue=None,
         ic = idx[:, r0:r0 + rows]
         g = x_flat[ic.reshape(-1)].float().reshape(*ic.shape, cin)
         v = (g * cwm[:, r0:r0 + rows, ..., None]).sum(-2)
-        v = v.to(x.dtype).float()
+        v = v + (v.to(sample_dtype or x.dtype).float() - v).detach()
         out[:, r0:r0 + rows] = (v.reshape(-1, 9 * cin) @ w_mat).reshape(
             b, -1, w, cout)
     if epilogue is not None:
@@ -119,3 +126,78 @@ def deform_conv2d(x, offset, mask, weight, epilogue=None):
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offset, mask, weight, epilogue)
     return deform_conv2d_cuda(x, offset, mask, weight, epilogue)
+
+
+def deform_conv2d_backward_plain(x, offset, mask, weight, g_out):
+    """(g_x, g_offset, g_mask, g_weight) of :func:`deform_conv2d_plain`
+    without the epilogue, by autograd through it in fp32 (samples rounded
+    to ``x.dtype`` as in the forward). g_x and g_weight come back in the
+    dtypes of x and weight, g_offset and g_mask in fp32, as from the
+    kernel."""
+    leaves = [t.detach().float().requires_grad_()
+              for t in (x, offset, mask, weight)]
+    with torch.enable_grad():
+        out = deform_conv2d_plain(*leaves, sample_dtype=x.dtype)
+        g_x, g_off, g_mask, g_w = torch.autograd.grad(out, leaves,
+                                                      g_out.float())
+    return g_x.to(x.dtype), g_off, g_mask, g_w.to(weight.dtype)
+
+
+def deform_conv2d_backward_cuda(x, offset, mask, weight, g_out):
+    """Launch ``csrc/dcn_bwd.cu``: bf16 ``x``, ``weight`` and ``g_out``;
+    returns g_x and g_weight in bf16 (summed in fp32), g_offset and g_mask
+    in fp32."""
+    name = "deform_conv2d_backward"
+    b, h, w, cin = x.shape
+    cout = weight.shape[-1]
+    g_out = g_out.contiguous()
+    _lib.require_cuda(name, x=x, weight=weight, g_out=g_out)
+    for key, t in (("x", x), ("weight", weight), ("g_out", g_out)):
+        _lib.require_dtype(name, key, t, torch.bfloat16)
+    if tuple(weight.shape) != (3, 3, cin, cout):
+        raise ValueError(f"{name}: weight has shape {tuple(weight.shape)}")
+    if tuple(g_out.shape) != (b, h, w, cout):
+        raise ValueError(f"{name}: g_out has shape {tuple(g_out.shape)}")
+    if cin % 64 or cout % 8:
+        raise ValueError(f"{name}: needs C_in % 64 == 0 and C_out % 8 == 0,"
+                         f" got {cin}, {cout}")
+    if offset.device != x.device or mask.device != x.device:
+        raise ValueError(f"{name}: offset and mask must be on {x.device}")
+    s_off = _pixel_stride(name, "offset", offset, b, h, w, 18)
+    s_mask = _pixel_stride(name, "mask", mask, b, h, w, 9)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    g_x = torch.zeros(b, h, w, cin, **f32)
+    g_w = torch.zeros(9 * cin, cout, **f32)
+    g_offset = torch.empty(b, h, w, 18, **f32)
+    g_mask = torch.empty(b, h, w, 9, **f32)
+    code = _lib.lib().gf_dcn_backward(
+        x.data_ptr(), offset.data_ptr(), s_off, mask.data_ptr(), s_mask,
+        weight.data_ptr(), g_out.data_ptr(), g_x.data_ptr(),
+        g_offset.data_ptr(), g_mask.data_ptr(), g_w.data_ptr(),
+        b, h, w, cin, cout, _lib.stream_ptr(x))
+    _lib.check(code, name)
+    _lib.LAUNCHES["dcn_bwd"] += 1
+    return (g_x.to(x.dtype), g_offset, g_mask,
+            g_w.reshape(weight.shape).to(weight.dtype))
+
+
+def deform_conv2d_backward(x, offset, mask, weight, g_out):
+    """DCNv2 backward: the plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors."""
+    if x.device.type == "cpu":
+        return deform_conv2d_backward_plain(x, offset, mask, weight, g_out)
+    return deform_conv2d_backward_cuda(x, offset, mask, weight, g_out)
+
+
+class DeformConv2dFunction(torch.autograd.Function):
+    """DCNv2 without the epilogue, differentiable: K1 forward, K5
+    backward (the plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight):
+        ctx.save_for_backward(x, offset, mask, weight)
+        return deform_conv2d(x, offset, mask, weight)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        return deform_conv2d_backward(*ctx.saved_tensors, g_out)

@@ -1,11 +1,14 @@
-"""K3: multi-camera, multi-level deformable aggregation with the key-point
-sum fused.
+"""K3 / K6: multi-camera, multi-level deformable aggregation with the
+key-point sum fused, forward and backward.
 
-Kernel: ``csrc/deformable.cu`` (replaces the TPU kernel
-``gaussianformer_tpu/ops/pallas/deformable_kernel.py::deformable_fused_fwd``).
-Plain version: :func:`deformable_aggregation_plain`,
+Kernels: ``csrc/deformable.cu`` (K3, replaces the TPU kernel
+``gaussianformer_tpu/ops/pallas/deformable_kernel.py::deformable_fused_fwd``)
+and ``csrc/deformable_bwd.cu`` (K6, replaces ``deformable_fused_bwd``).
+Plain versions: :func:`deformable_aggregation_plain`,
 ``gaussianformer_tpu/ops/deformable.py::deformable_aggregation`` followed
-by the sum over each anchor's key points.
+by the sum over each anchor's key points, and
+:func:`deformable_aggregation_backward_plain`, autograd through it.
+:class:`DeformableAggregationFunction` ties the two together.
 
 Conventions of the reference op: locations are normalised (u, v) per
 camera image; a location takes part only when strictly inside (0, 1) on
@@ -105,11 +108,110 @@ def deformable_aggregation_cuda(feature_maps, points_2d, weights,
     return out
 
 
-def deformable_aggregation(feature_maps, points_2d, weights, num_pts: int):
-    """Deformable aggregation summed over key points: the plain version
-    for CPU tensors, the CUDA kernel for CUDA tensors."""
+def _forward(feature_maps, points_2d, weights, num_pts: int):
     if points_2d.device.type == "cpu":
         return deformable_aggregation_plain(feature_maps, points_2d,
                                             weights, num_pts)
     return deformable_aggregation_cuda(feature_maps, points_2d, weights,
                                        num_pts)
+
+
+def deformable_aggregation_backward_plain(feature_maps, points_2d, weights,
+                                          num_pts: int, g_out):
+    """(feature-map gradients in the maps' dtypes, g_points_2d,
+    g_weights) of :func:`deformable_aggregation_plain`, by autograd in
+    fp32: the feature gradients are summed in fp32 and cast at the end, as
+    in the kernel."""
+    feats = [f.detach().float().requires_grad_() for f in feature_maps]
+    pts = points_2d.detach().requires_grad_()
+    wts = weights.detach().requires_grad_()
+    with torch.enable_grad():
+        out = deformable_aggregation_plain(feats, pts, wts, num_pts)
+        grads = torch.autograd.grad(out, feats + [pts, wts], g_out.float())
+    return ([g.to(f.dtype) for g, f in zip(grads, feature_maps)],
+            grads[-2], grads[-1])
+
+
+def deformable_aggregation_backward_cuda(feature_maps, points_2d, weights,
+                                         num_pts: int, g_out):
+    """Launch ``csrc/deformable_bwd.cu``: one warp per anchor. The feature
+    gradients are summed in fp32 and returned in the maps' dtype."""
+    name = "deformable_aggregation_backward"
+    b, q, cams, _ = points_2d.shape
+    levels = len(feature_maps)
+    g = weights.shape[-1]
+    c = feature_maps[0].shape[-1]
+    g_out = g_out.float().contiguous()
+    _lib.require_cuda(name, points_2d=points_2d, weights=weights,
+                      g_out=g_out,
+                      **{f"feature_maps[{i}]": f
+                         for i, f in enumerate(feature_maps)})
+    _lib.require_dtype(name, "points_2d", points_2d, torch.float32)
+    _lib.require_dtype(name, "weights", weights, torch.float32)
+    dt = feature_maps[0].dtype
+    _lib.require_dtype(name, "feature_maps", feature_maps[0],
+                       torch.float32, torch.bfloat16)
+    for i, f in enumerate(feature_maps):
+        _lib.require_dtype(name, f"feature_maps[{i}]", f, dt)
+        if f.shape[:2] != (b, cams) or f.shape[-1] != c:
+            raise ValueError(f"{name}: feature_maps[{i}] has shape "
+                             f"{tuple(f.shape)}")
+    if weights.shape != (b, q, cams, levels, g) or q % num_pts:
+        raise ValueError(f"{name}: weights has shape {tuple(weights.shape)}")
+    p = q // num_pts
+    if g_out.shape != (b, p, c):
+        raise ValueError(f"{name}: g_out has shape {tuple(g_out.shape)}")
+    g_feats = [torch.zeros(f.shape, dtype=torch.float32, device=f.device)
+               for f in feature_maps]
+    g_pts = torch.zeros_like(points_2d)
+    g_wts = torch.zeros_like(weights)
+    ptrs = (ctypes.c_void_p * levels)(*[f.data_ptr() for f in feature_maps])
+    gptrs = (ctypes.c_void_p * levels)(*[t.data_ptr() for t in g_feats])
+    hs = (ctypes.c_int * levels)(*[f.shape[2] for f in feature_maps])
+    ws = (ctypes.c_int * levels)(*[f.shape[3] for f in feature_maps])
+    code = _lib.lib().gf_deformable_backward(
+        ptrs, gptrs, hs, ws, levels, int(dt == torch.bfloat16),
+        points_2d.data_ptr(), weights.data_ptr(), g_out.data_ptr(),
+        g_pts.data_ptr(), g_wts.data_ptr(), b, p, num_pts, cams, c, g,
+        _lib.stream_ptr(points_2d))
+    _lib.check(code, name)
+    _lib.LAUNCHES["deformable_bwd"] += 1
+    return [t.to(dt) for t in g_feats], g_pts, g_wts
+
+
+def deformable_aggregation_backward(feature_maps, points_2d, weights,
+                                    num_pts: int, g_out):
+    """The backward: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors."""
+    if points_2d.device.type == "cpu":
+        return deformable_aggregation_backward_plain(
+            feature_maps, points_2d, weights, num_pts, g_out)
+    return deformable_aggregation_backward_cuda(
+        feature_maps, points_2d, weights, num_pts, g_out)
+
+
+class DeformableAggregationFunction(torch.autograd.Function):
+    """Differentiable aggregation: K3 forward, K6 backward (the plain
+    versions on the CPU). Arguments: points_2d, weights, num_pts, then the
+    feature maps."""
+
+    @staticmethod
+    def forward(ctx, points_2d, weights, num_pts, *feature_maps):
+        ctx.num_pts = num_pts
+        ctx.save_for_backward(points_2d, weights, *feature_maps)
+        return _forward(list(feature_maps), points_2d, weights, num_pts)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        points_2d, weights, *feats = ctx.saved_tensors
+        g_feats, g_pts, g_wts = deformable_aggregation_backward(
+            feats, points_2d, weights, ctx.num_pts, g_out)
+        return (g_pts, g_wts, None, *g_feats)
+
+
+def deformable_aggregation(feature_maps, points_2d, weights, num_pts: int):
+    """Deformable aggregation summed over key points, differentiable in
+    every input: the plain versions for CPU tensors, the CUDA kernels for
+    CUDA tensors."""
+    return DeformableAggregationFunction.apply(points_2d, weights, num_pts,
+                                               *feature_maps)

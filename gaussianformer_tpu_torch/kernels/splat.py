@@ -1,12 +1,15 @@
-"""K4: probabilistic Gaussian -> voxel splat with the final-occ label
-epilogue.
+"""K4 / K7: probabilistic Gaussian -> voxel splat with the final-occ label
+epilogue, and its backward.
 
-Kernel: ``csrc/splat.cu`` (replaces the TPU kernel
+Kernels: ``csrc/splat.cu`` (K4, replaces the TPU kernel
 ``gaussianformer_tpu/ops/pallas/splat_kernel.py::splat_raw_pallas`` with
-``emit_labels``). Plain version: :func:`splat_accumulate_plain`, a chunked
-dense form of ``gaussianformer_tpu/ops/splat.py::splat_dense_reference``
-(with the exponent clamp of ``_chunk_step``) plus :func:`labels_from_acc`,
-the epilogue of ``_postprocess_prob`` and ``_labels_xla``.
+``emit_labels``) and ``csrc/splat_bwd.cu`` (K7, replaces
+``gaussianformer_tpu/ops/pallas/splat_bwd_kernel.py::splat_bwd_raw_pallas``).
+Plain versions: :func:`splat_accumulate_plain`, a chunked dense form of
+``gaussianformer_tpu/ops/splat.py::splat_dense_reference`` (with the
+exponent clamp of ``_chunk_step``) plus :func:`labels_from_acc`, the
+epilogue of ``_postprocess_prob`` and ``_labels_xla``; and
+:func:`splat_backward_plain`, a chunked port of ``_splat_bwd_single``.
 
 Inputs are the packed tables of ``ops/splat.py::pack_gaussians``:
 ``gdata`` [P, 9] = (mean, inverse covariance [xx, yy, zz, xy, yz, xz]),
@@ -19,6 +22,7 @@ AABB, ``sem_aug`` [P, C + 2] = (sem * w, w, 1). Outputs per point:
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -119,3 +123,144 @@ def splat_accumulate(points, gdata, box, sem_aug, grid):
     if points.device.type == "cpu":
         return splat_accumulate_plain(points, gdata, box, sem_aug, grid)
     return splat_accumulate_cuda(points, gdata, box, sem_aug, grid)
+
+
+NORM_3D = (2.0 * math.pi) ** -1.5
+
+
+def _det_terms(gdata, opa):
+    """det(A), sqrt(max(det, 1e-30)) and w = (2 pi)^-1.5 sqrt(det) opa."""
+    xx, yy, zz, xy, yz, xz = gdata[:, 3:9].unbind(-1)
+    det = (xx * yy * zz + 2.0 * xy * yz * xz
+           - xx * yz * yz - yy * xz * xz - zz * xy * xy)
+    sqrt_det = torch.sqrt(det.clamp_min(1e-30))
+    return det, sqrt_det, NORM_3D * sqrt_det * opa
+
+
+def _finish_backward(gdata, opa, sd, sdd, gw, gsem):
+    """Fold the per-Gaussian sums into (gmu, gopa, gsem, gcov): the
+    exponent's moments and the det(A) term of w."""
+    a = gdata[:, 3:9]
+    xx, yy, zz, xy, yz, xz = a.unbind(-1)
+    gmu = -torch.stack([xx * sd[:, 0] + xy * sd[:, 1] + xz * sd[:, 2],
+                        xy * sd[:, 0] + yy * sd[:, 1] + yz * sd[:, 2],
+                        xz * sd[:, 0] + yz * sd[:, 1] + zz * sd[:, 2]], -1)
+    det, sqrt_det, _ = _det_terms(gdata, opa)
+    gopa = gw * NORM_3D * sqrt_det
+    gdet = torch.where(det > 1e-30,
+                       gw * opa * NORM_3D / (2.0 * sqrt_det),
+                       torch.zeros_like(gw))
+    ddet = torch.stack([yy * zz - yz * yz, xx * zz - xz * xz,
+                        xx * yy - xy * xy, 2.0 * (yz * xz - zz * xy),
+                        2.0 * (xy * xz - xx * yz), 2.0 * (xy * yz - yy * xz)],
+                       -1)
+    gcov = (torch.cat([-0.5 * sdd[:, :3], -sdd[:, 3:]], -1)
+            + gdet[:, None] * ddet)
+    return gmu, gopa, gsem, gcov
+
+
+@torch.no_grad()
+def splat_backward_plain(points, gdata, opa, sem, box, gl, scalars, grid,
+                         chunk_n: int = 65536, chunk_g: int = 128):
+    """Hand-derived VJP of the prob splat in dense (point-chunk x
+    Gaussian-chunk) blocks, fp32 (``_splat_bwd_single``). ``gl`` [N, C] is
+    the covered, prob_sum-normalised logits cotangent; ``scalars`` [N, 3]
+    holds (dot_gl, bin_term, g_density). The exponent's moments are summed
+    in the displacement d = mu - x. Returns (gmu [P, 3], gopa [P],
+    gsem [P, C], gcov [P, 6])."""
+    n = points.shape[0]
+    p, c = sem.shape
+    dev = points.device
+    pint = grid.voxelize(points)
+    _, _, w = _det_terms(gdata, opa)
+    f32 = dict(dtype=torch.float32, device=dev)
+    sd = torch.zeros(p, 3, **f32)
+    sdd = torch.zeros(p, 6, **f32)
+    gw = torch.zeros(p, **f32)
+    gsem = torch.zeros(p, c, **f32)
+    for n0 in range(0, n, chunk_n):
+        pts = points[n0:n0 + chunk_n]
+        pi = pint[n0:n0 + chunk_n]
+        gl_n = gl[n0:n0 + chunk_n]
+        dot_gl, bin_term, g_dens = scalars[n0:n0 + chunk_n].unbind(-1)
+        for g0 in range(0, p, chunk_g):
+            sl = slice(g0, g0 + chunk_g)
+            gd, bx = gdata[sl], box[sl]
+            d = [gd[None, :, a] - pts[:, None, a] for a in range(3)]
+            logit = (-0.5 * (gd[:, 3] * d[0] * d[0] + gd[:, 4] * d[1] * d[1]
+                             + gd[:, 5] * d[2] * d[2])
+                     - (gd[:, 6] * d[0] * d[1] + gd[:, 7] * d[1] * d[2]
+                        + gd[:, 8] * d[0] * d[2]))
+            inside = ((pi[:, None, :] >= bx[None, :, 0:3])
+                      & (pi[:, None, :] <= bx[None, :, 3:6])).all(-1)
+            power = torch.exp(torch.clamp_max(logit, 30.0)) * inside
+            gprob = gl_n @ sem[sl].T - dot_gl[:, None]
+            one_m = 1.0 - torch.clamp_max(power, 1.0 - 1e-9) + 1e-9
+            gpower = (g_dens[:, None] + bin_term[:, None] / one_m
+                      + gprob * w[None, sl])
+            gw[sl] += (gprob * power).sum(0)
+            gsem[sl] += (power * w[None, sl]).T @ gl_n
+            glogit = gpower * power * (logit < 30.0)
+            sd[sl] += torch.stack([(glogit * d[a]).sum(0)
+                                   for a in range(3)], -1)
+            sdd[sl] += torch.stack([(glogit * d[i] * d[j]).sum(0)
+                                    for i, j in ((0, 0), (1, 1), (2, 2),
+                                                 (0, 1), (1, 2), (0, 2))],
+                                   -1)
+    return _finish_backward(gdata, opa, sd, sdd, gw, gsem)
+
+
+def _require_raster(name, points, grid):
+    """The kernel enumerates each Gaussian's AABB by raster index: the
+    points must be the voxel grid in raster order (x slowest, z
+    fastest), one per voxel."""
+    if points.shape != (grid.num_voxels, 3):
+        raise ValueError(f"{name}: points are not the {grid.H}x{grid.W}x"
+                         f"{grid.D} voxel grid")
+    idx = grid.voxelize(points)
+    lin = (idx[:, 0] * grid.W + idx[:, 1]) * grid.D + idx[:, 2]
+    if not torch.equal(lin, torch.arange(grid.num_voxels,
+                                         device=points.device)):
+        raise ValueError(f"{name}: points are not the voxel grid in raster "
+                         f"order")
+
+
+def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid):
+    """Launch ``csrc/splat_bwd.cu``: one block per Gaussian over the
+    voxels of its AABB. The points must be the raster voxel grid."""
+    name = "splat_backward"
+    p, c = sem.shape
+    tensors = dict(points=points, gdata=gdata, opa=opa, sem=sem, box=box,
+                   gl=gl, scalars=scalars)
+    _lib.require_cuda(name, **tensors)
+    for key, t in tensors.items():
+        _lib.require_dtype(name, key, t,
+                           torch.int32 if key == "box" else torch.float32)
+    n = points.shape[0]
+    if (gdata.shape != (p, 9) or opa.shape != (p,) or box.shape != (p, 6)
+            or gl.shape != (n, c) or scalars.shape != (n, 3)):
+        raise ValueError(f"{name}: bad table shapes")
+    _require_raster(name, points, grid)
+    f32 = dict(dtype=torch.float32, device=points.device)
+    gmu = torch.empty(p, 3, **f32)
+    gopa = torch.empty(p, **f32)
+    gsem = torch.empty(p, c, **f32)
+    gcov = torch.empty(p, 6, **f32)
+    code = _lib.lib().gf_splat_backward(
+        points.data_ptr(), gdata.data_ptr(), opa.data_ptr(), sem.data_ptr(),
+        box.data_ptr(), gl.data_ptr(), scalars.data_ptr(), p, c, grid.H,
+        grid.W, grid.D, gmu.data_ptr(), gopa.data_ptr(), gsem.data_ptr(),
+        gcov.data_ptr(), _lib.stream_ptr(points))
+    _lib.check(code, name)
+    _lib.LAUNCHES["splat_bwd"] += 1
+    return gmu, gopa, gsem, gcov
+
+
+def splat_backward(points, gdata, opa, sem, box, gl, scalars, grid):
+    """Per-Gaussian splat gradients: the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors."""
+    if points.device.type == "cpu":
+        return splat_backward_plain(points, gdata, opa, sem, box, gl,
+                                    scalars, grid)
+    return splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars,
+                               grid)

@@ -1,8 +1,12 @@
 """Caffe-style ResNet with DCNv2 stages and frozen BN, NCHW
 (gaussianformer_tpu/models/backbone/resnet.py; mmseg ResNet names).
 
-Inference only: each DCN block's bn2 + ReLU is fused into the DCN kernel's
-epilogue. The stem is a plain 7x7/2 conv. Parameters stay fp32; convs run
+With gradients off (inference) each DCN block's bn2 + ReLU is fused into
+the DCN kernel's epilogue; with gradients on (training, ``fuse_dcn_epilogue
+= not training`` in the JAX package) the DCN runs as the differentiable
+K1/K5 pair and bn2 + ReLU follow in PyTorch. The frozen BNs keep their
+statistics but train their scale and bias, as the JAX ``FrozenBatchNorm``
+params do. The stem is a plain 7x7/2 conv. Parameters stay fp32; convs run
 in the input's dtype (bf16 on the card), so the casts match the JAX
 package's ``dtype=bfloat16`` modules.
 """
@@ -14,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...kernels.dcn import deform_conv2d
+from ...kernels.dcn import DeformConv2dFunction, deform_conv2d
 
 ARCH_SETTINGS = {
     26: (1, 1, 1, 1),     # tiny bottleneck (tests)
@@ -65,13 +69,20 @@ class DeformConv2d(nn.Module):
         self.conv_offset = Conv2d(in_channels, 27, 3, padding=1)
 
     def forward(self, x, epilogue=None):
+        """``epilogue=(inv, shift)`` fuses a following BN + ReLU; it is
+        forward-only, so it is refused with gradients on."""
         om = self.conv_offset(x).float().permute(0, 2, 3, 1)
         offset = om[..., :18]
         mask = torch.sigmoid(om[..., 18:])
         x_nhwc = x.contiguous(memory_format=torch.channels_last).permute(
             0, 2, 3, 1)
         w_hwio = self.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous()
-        out = deform_conv2d(x_nhwc, offset, mask, w_hwio, epilogue)
+        if torch.is_grad_enabled():
+            if epilogue is not None:
+                raise ValueError("the fused DCN epilogue has no backward")
+            out = DeformConv2dFunction.apply(x_nhwc, offset, mask, w_hwio)
+        else:
+            out = deform_conv2d(x_nhwc, offset, mask, w_hwio, epilogue)
         return out.permute(0, 3, 1, 2)
 
 
@@ -96,7 +107,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         out = torch.relu(self.bn1(self.conv1(x)))
-        if self.with_dcn:
+        if self.with_dcn and not torch.is_grad_enabled():
             out = self.conv2(out, epilogue=self.bn2.coeffs())
         else:
             out = torch.relu(self.bn2(self.conv2(out)))

@@ -36,8 +36,10 @@ class GaussianOccEncoder(nn.Module):
                                     for op in self.operation_order)
 
     def forward(self, representation, rep_features, ms_img_feats,
-                projection_mat, image_wh):
-        """ms_img_feats: per level [B, cams, H_l, W_l, C] (NHWC)."""
+                projection_mat, image_wh, training: bool = False,
+                generator=None):
+        """ms_img_feats: per level [B, cams, H_l, W_l, C] (NHWC).
+        ``training`` turns dropout on, drawn from ``generator``."""
         anchor = representation
         instance_feature = rep_features
         anchor_embed = self.anchor_encoder(anchor)
@@ -50,12 +52,16 @@ class GaussianOccEncoder(nn.Module):
                 identity = instance_feature
             elif op == "add":
                 instance_feature = instance_feature + identity
-            elif op in ("norm", "ffn"):
+            elif op == "norm":
                 instance_feature = layer(instance_feature)
+            elif op == "ffn":
+                instance_feature = layer(instance_feature, training,
+                                         generator)
             elif op == "deformable":
                 instance_feature = layer(instance_feature, anchor,
                                          anchor_embed, ms_img_feats,
-                                         projection_mat, image_wh)
+                                         projection_mat, image_wh, training,
+                                         generator)
             elif op == "spconv":
                 instance_feature = layer(instance_feature, anchor)
             else:  # refine

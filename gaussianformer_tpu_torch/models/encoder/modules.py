@@ -17,7 +17,7 @@ from ...ops.rotation import quaternion_to_rotation_matrix
 from ...ops.safe_ops import safe_sigmoid
 from ...ops.sparse_conv import (neighbor_anchors, submanifold_conv3d,
                                 voxel_indices)
-from ..layers import Scale, linear_relu_ln
+from ..layers import Scale, dropout, linear_relu_ln
 
 
 class GaussianPrediction(NamedTuple):
@@ -52,18 +52,22 @@ class SparseGaussian3DEncoder(nn.Module):
 
 class AsymmetricFFN(nn.Module):
     """Linear -> ReLU -> Linear without identity (reference ffn_module.py
-    names: ``layers.0.0`` and ``layers.1``; dropout is off at inference)."""
+    names: ``layers.0.0`` and ``layers.1``), with ``ffn_drop`` dropout
+    after the ReLU and after the second Linear in training."""
 
     def __init__(self, embed_dims: int = 128,
-                 feedforward_channels: int = 512):
+                 feedforward_channels: int = 512, ffn_drop: float = 0.0):
         super().__init__()
+        self.ffn_drop = ffn_drop
         self.layers = nn.Sequential(
             nn.Sequential(nn.Linear(embed_dims, feedforward_channels),
                           nn.ReLU()),
             nn.Linear(feedforward_channels, embed_dims))
 
-    def forward(self, x):
-        return self.layers(x)
+    def forward(self, x, training: bool = False, generator=None):
+        p = self.ffn_drop if training else 0.0
+        h = dropout(self.layers[0](x), p, generator)
+        return dropout(self.layers[1](h), p, generator)
 
 
 class SparseGaussian3DKeyPointsGenerator(nn.Module):
@@ -119,7 +123,10 @@ def project_points(key_points, projection_mat, image_wh):
 
 class DeformableFeatureAggregation(nn.Module):
     """Deformable multi-camera multi-level cross attention (reference
-    deformable_module.py), residual mode "none"."""
+    deformable_module.py), residual mode "none". In training, attention
+    dropout as the JAX package does it: a keep mask ``uniform > attn_drop``
+    joins the visibility mask before the masked softmax, with no rescale
+    (modules.py:443-457)."""
 
     def __init__(self, embed_dims: int = 128, num_groups: int = 4,
                  num_levels: int = 4, num_cams: int = 6,
@@ -127,8 +134,9 @@ class DeformableFeatureAggregation(nn.Module):
                  learnable_fixed_scale: float = 6.0,
                  fix_scale=((0.0, 0.0, 0.0),),
                  pc_range=(-50.0, -50.0, -5.0, 50.0, 50.0, 3.0),
-                 scale_range=(0.01, 3.2)):
+                 scale_range=(0.01, 3.2), attn_drop: float = 0.0):
         super().__init__()
+        self.attn_drop = attn_drop
         self.num_groups = num_groups
         self.num_levels = num_levels
         self.num_cams = num_cams
@@ -142,7 +150,8 @@ class DeformableFeatureAggregation(nn.Module):
         self.output_proj = nn.Linear(embed_dims, embed_dims)
 
     def attention_inputs(self, instance_feature, anchor, anchor_embed,
-                         projection_mat, image_wh):
+                         projection_mat, image_wh, training: bool = False,
+                         generator=None):
         """Sample locations [B, P*K, cams, 2] and masked-softmax weights
         [B, P*K, cams, L, G] of the aggregation."""
         b, p = instance_feature.shape[:2]
@@ -156,9 +165,16 @@ class DeformableFeatureAggregation(nn.Module):
             b, p, self.num_cams, self.num_levels, k, self.num_groups)
         points_2d, vis = project_points(key_points, projection_mat,
                                         image_wh)
+        keep = None
+        if training and self.attn_drop > 0:
+            keep = torch.rand(weights.shape, generator=generator,
+                              device=weights.device) > self.attn_drop
+            keep = keep.permute(0, 1, 4, 2, 3, 5)
         weights = weights.permute(0, 1, 4, 2, 3, 5)     # [B, P, K, c, L, G]
         mask = vis.permute(0, 2, 3, 1)[..., None, None].expand(
             weights.shape)
+        if keep is not None:
+            mask = mask & keep
         # rows that miss every camera are zeroed, not softmaxed over -inf
         all_miss = mask.sum(dim=(2, 3, 4), keepdim=True) == 0
         w = weights.masked_fill(~mask, float("-inf"))
@@ -172,11 +188,12 @@ class DeformableFeatureAggregation(nn.Module):
         return loc.contiguous(), w.contiguous()
 
     def forward(self, instance_feature, anchor, anchor_embed, feature_maps,
-                projection_mat, image_wh):
+                projection_mat, image_wh, training: bool = False,
+                generator=None):
         """feature_maps: per level [B, cams, H_l, W_l, C] (NHWC)."""
         loc, w = self.attention_inputs(instance_feature, anchor,
                                        anchor_embed, projection_mat,
-                                       image_wh)
+                                       image_wh, training, generator)
         features = deformable_aggregation(feature_maps, loc, w,
                                           self.kps_generator.num_pts)
         return self.output_proj(features)

@@ -28,3 +28,13 @@ class Scale(nn.Module):
 
     def forward(self, x):
         return x * self.scale
+
+
+def dropout(x, p: float, generator=None):
+    """Inverted dropout (flax ``nn.Dropout``): keep each element with
+    probability 1 - p and scale it by 1 / (1 - p); the draw comes from
+    ``generator``."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

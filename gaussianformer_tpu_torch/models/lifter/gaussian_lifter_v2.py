@@ -1,5 +1,5 @@
-"""GaussianLifterV2, inference path: distribution-based pixel-aligned
-anchor initialisation (gaussianformer_tpu/models/lifter/gaussian_lifter_v2.py).
+"""GaussianLifterV2: distribution-based pixel-aligned anchor initialisation
+(gaussianformer_tpu/models/lifter/gaussian_lifter_v2.py).
 
 Per pixel of the initializer tower's stride-8 map, a depth distribution
 over ``num_samples`` bins (+1 "no occupancy" bin) picks one depth, by
@@ -7,7 +7,9 @@ inverse-CDF sampling or top-1; the unprojected points that are disabled or
 outside pc_range are replaced by jittered copies of random valid ones;
 farthest-point sampling (kernel K2) keeps ``num_anchor`` of them. The
 learned anchor bank supplies scale/rotation/opacity/semantics, and
-``random_samples`` fully learned anchors are appended.
+``random_samples`` fully learned anchors are appended. In training
+(``compute_gt``) the ground-truth occupancy along each pixel's ray,
+``pixel_gt``, supervises the depth distribution.
 """
 from __future__ import annotations
 
@@ -51,6 +53,9 @@ class GaussianLifterV2(nn.Module):
                  pc_range: Tuple[float, ...] = (-50.0, -50.0, -5.0,
                                                 50.0, 50.0, 3.0),
                  random_samples: int = 2400, anchors_per_pixel: int = 1,
+                 voxel_size: float = 0.5,
+                 occ_resolution: Tuple[int, int, int] = (200, 200, 16),
+                 empty_label: int = 17,
                  deterministic_sampling: bool = False,
                  initializer_depth: int = 101,
                  initializer_dcn=(False, False, True, True),
@@ -65,6 +70,9 @@ class GaussianLifterV2(nn.Module):
         self.pc_range = tuple(pc_range)
         self.random_samples = random_samples
         self.anchors_per_pixel = anchors_per_pixel
+        self.voxel_size = voxel_size
+        self.occ_resolution = tuple(occ_resolution)
+        self.empty_label = empty_label
         self.deterministic_sampling = deterministic_sampling
         self.initialize_backbone = ResNetSecondFPN(
             depth=initializer_depth, stage_with_dcn=initializer_dcn,
@@ -80,11 +88,37 @@ class GaussianLifterV2(nn.Module):
         self.instance_feature = nn.Parameter(
             torch.zeros(num_anchor + random_samples, embed_dims))
 
-    def forward(self, imgs, projection_mat, image_wh,
-                generator: Optional[torch.Generator] = None, draws=None):
+    def pixel_gt(self, origin, ray_dir, depth_bins, occ_label, occ_cam_mask):
+        """Ground-truth occupancy along each ray: [B, N, h, w, S + 1] bool,
+        the S depth bins that hit an occupied, camera-visible voxel inside
+        pc_range, then the no-hit bin (gaussian_lifter_v2.py:139-166)."""
+        b = occ_label.shape[0]
+        gt_flat = ((occ_label != self.empty_label)
+                   & occ_cam_mask.bool()).to(torch.uint8).reshape(b, -1)
+        res = self.occ_resolution
+        ix, oob = [], None
+        for ax in range(3):
+            coord = origin[..., ax:ax + 1] + ray_dir[..., ax:ax + 1] \
+                * depth_bins                               # [B,N,h,w,S]
+            lo, hi = self.pc_range[ax], self.pc_range[ax + 3]
+            axi = ((coord - lo) / self.voxel_size).to(torch.int32)
+            bad = (coord < lo) | (coord >= hi)
+            oob = bad if oob is None else oob | bad
+            ix.append(axi.clamp(0, res[ax] - 1).long())
+        lin = ((ix[0] * res[1] + ix[1]) * res[2] + ix[2]).reshape(b, -1)
+        gt = torch.gather(gt_flat, 1, lin).reshape(oob.shape)
+        gt = (gt > 0) & ~oob
+        return torch.cat([gt, ~gt.any(-1, keepdim=True)], dim=-1)
+
+    def forward(self, imgs, projection_mat, image_wh, occ_label=None,
+                occ_cam_mask=None, *,
+                generator: Optional[torch.Generator] = None, draws=None,
+                compute_gt: bool = False):
         """imgs [B, N, H, W, 3]; projection_mat [B, N, 4, 4] (lidar ->
-        image); image_wh [B, N, 2]. ``draws`` replaces the random draws of
-        :func:`pad_draws` (tests feed both packages the same numbers)."""
+        image); image_wh [B, N, 2]; occ_label [B, X, Y, Z] and
+        occ_cam_mask [B, X, Y, Z] for ``pixel_gt`` (with ``compute_gt``).
+        ``draws`` replaces the random draws of :func:`pad_draws` (tests
+        feed both packages the same numbers)."""
         b, n = imgs.shape[:2]
         dev = imgs.device
         flat = imgs.reshape((b * n,) + imgs.shape[2:]).permute(0, 3, 1, 2)
@@ -108,8 +142,12 @@ class GaussianLifterV2(nn.Module):
                                     self.num_samples, device=dev)
         lo = torch.tensor(self.pc_range[:3], device=dev)
         hi = torch.tensor(self.pc_range[3:6], device=dev)
+        gt = None
+        if compute_gt and occ_label is not None:
+            gt = self.pixel_gt(origin, ray_dir, depth_bins, occ_label,
+                               occ_cam_mask)
 
-        pdfs = torch.softmax(logits, dim=-1)
+        pdfs = torch.softmax(logits.detach(), dim=-1)
         if self.deterministic_sampling:
             index = torch.topk(pdfs, self.anchors_per_pixel, dim=-1).indices
         else:
@@ -151,4 +189,5 @@ class GaussianLifterV2(nn.Module):
             "representation": anchor,
             "rep_features": self.instance_feature[None].expand(b, -1, -1),
             "pixel_logits": logits,
+            "pixel_gt": gt,
         }

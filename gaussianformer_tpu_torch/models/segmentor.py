@@ -1,9 +1,14 @@
-"""Top-level segmentor, inference path (gaussianformer_tpu/models/
-segmentor.py): images -> ResNet+DCN -> FPN -> GaussianLifterV2 ->
-GaussianOccEncoder -> GaussianHead."""
+"""Top-level segmentor (gaussianformer_tpu/models/segmentor.py): images ->
+ResNet+DCN -> FPN -> GaussianLifterV2 -> GaussianOccEncoder ->
+GaussianHead.
+
+``training=True`` is the train step's forward: the lifter's ray ground
+truth, dropout, the head's supervised-layer choice. Gradients follow
+autograd's mode: inference callers run under ``torch.inference_mode()``,
+which also selects the DCN kernel's fused epilogue."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -35,7 +40,8 @@ class BEVSegmentor(nn.Module):
             initializer_dcn=cfg.stage_with_dcn,
             initializer_base_channels=cfg.base_channels,
             initializer_out_channels=cfg.initializer_out_channels,
-            dtype=dt)
+            voxel_size=cfg.grid.grid_size, occ_resolution=cfg.occ_resolution,
+            empty_label=cfg.empty_label, dtype=dt)
         kps = dict(num_learnable_pts=cfg.num_learnable_pts,
                    learnable_fixed_scale=cfg.learnable_fixed_scale,
                    fix_scale=cfg.fix_scale, pc_range=cfg.pc_range,
@@ -43,9 +49,11 @@ class BEVSegmentor(nn.Module):
         self.encoder = GaussianOccEncoder(
             cfg.operation_order, cfg.embed_dims, cfg.semantic_dim,
             ffn_cfg=dict(embed_dims=cfg.embed_dims,
-                         feedforward_channels=cfg.embed_dims * 4),
+                         feedforward_channels=cfg.embed_dims * 4,
+                         ffn_drop=cfg.ffn_drop),
             deformable_cfg=dict(embed_dims=cfg.embed_dims,
-                                num_cams=cfg.num_cams, **kps),
+                                num_cams=cfg.num_cams,
+                                attn_drop=cfg.attn_drop, **kps),
             refine_cfg=dict(embed_dims=cfg.embed_dims,
                             pc_range=cfg.pc_range,
                             scale_range=cfg.scale_range,
@@ -55,34 +63,41 @@ class BEVSegmentor(nn.Module):
                             embed_channels=cfg.embed_dims,
                             pc_range=cfg.pc_range,
                             grid_size=cfg.spconv_grid_size, dtype=dt))
-        self.head = GaussianHead(cfg.grid)
+        self.head = GaussianHead(cfg.grid, cfg.apply_loss_type)
 
-    @torch.no_grad()
-    def forward(self, imgs, projection_mat, image_wh, occ_xyz=None, *,
+    def forward(self, imgs, projection_mat, image_wh, occ_xyz=None,
+                occ_label=None, occ_cam_mask=None, *,
+                training: bool = False,
                 generator: Optional[torch.Generator] = None,
                 rep_only: bool = False, occ_only: bool = False,
-                lifter_draws=None):
+                lifter_draws=None,
+                apply_loss_layers: Optional[Sequence[int]] = None):
         """imgs [B, N, H, W, 3] normalised images; projection_mat
         [B, N, 4, 4] lidar -> image; image_wh [B, N, 2]; occ_xyz
-        [B, X, Y, Z, 3] voxel centres (needed unless ``rep_only``).
-        ``generator`` drives the lifter's depth sampling and padding."""
+        [B, X, Y, Z, 3] voxel centres (needed unless ``rep_only``);
+        occ_label and occ_cam_mask [B, X, Y, Z], the ground truth of the
+        losses. ``generator`` drives the lifter's depth sampling and
+        padding and, with ``training``, the dropout draws."""
         b, n = imgs.shape[:2]
         flat = imgs.reshape((b * n,) + imgs.shape[2:]).permute(0, 3, 1, 2)
         feats = self.img_neck(self.img_backbone(flat))
         ms_feats = [f.permute(0, 2, 3, 1).reshape(
             b, n, f.shape[2], f.shape[3], f.shape[1]).contiguous()
             for f in feats]
-        lifter_out = self.lifter(imgs, projection_mat, image_wh,
-                                 generator=generator, draws=lifter_draws)
+        lifter_out = self.lifter(imgs, projection_mat, image_wh, occ_label,
+                                 occ_cam_mask, generator=generator,
+                                 draws=lifter_draws, compute_gt=training)
         enc_out = self.encoder(lifter_out["representation"],
                                lifter_out["rep_features"], ms_feats,
-                               projection_mat, image_wh)
+                               projection_mat, image_wh, training, generator)
         if rep_only:
             return {"representation": enc_out["representation"]}
-        head_out = self.head(enc_out["representation"], occ_xyz)
+        head_out = self.head(enc_out["representation"], occ_xyz, occ_label,
+                             occ_cam_mask, training, apply_loss_layers)
         if occ_only:
             return {"final_occ": head_out["final_occ"]}
         head_out["pixel_logits"] = lifter_out["pixel_logits"]
+        head_out["pixel_gt"] = lifter_out["pixel_gt"]
         return head_out
 
 

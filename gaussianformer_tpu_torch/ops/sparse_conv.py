@@ -53,14 +53,22 @@ def submanifold_conv3d(features, nb_anchor, weight, bias=None,
     c_out = weight.shape[0]
     dt = compute_dtype or features.dtype
     kkk = nb_anchor.shape[1]
-    feats = torch.cat([features.to(dt),
-                       features.new_zeros(1, c_in, dtype=dt)])
+    feats = features.to(dt)
+    # an empty tap reads the anchor's own row and is zeroed, rather than
+    # reading one shared zero row: the gather's backward sums the rows'
+    # gradients by index, and one row taken by most of the P * k^3 taps
+    # serialises that sum
+    empty = nb_anchor == p
+    own = torch.arange(p, device=features.device)[:, None]
+    nb_safe = torch.where(empty, own, nb_anchor)
     w_taps = weight.permute(1, 2, 3, 4, 0).reshape(kkk, c_in, c_out).to(dt)
     out = torch.zeros(p, c_out, dtype=torch.float32, device=features.device)
     for t0 in range(0, kkk, taps_per_chunk):
-        nb = nb_anchor[:, t0:t0 + taps_per_chunk]
-        g = feats[nb.reshape(-1)].reshape(p, -1)
-        out += (g @ w_taps[t0:t0 + taps_per_chunk].reshape(-1, c_out)).float()
+        nb = nb_safe[:, t0:t0 + taps_per_chunk]
+        g = feats[nb.reshape(-1)].reshape(p, -1, c_in)
+        g = g.masked_fill(empty[:, t0:t0 + taps_per_chunk, None], 0.0)
+        out += (g.reshape(p, -1)
+                @ w_taps[t0:t0 + taps_per_chunk].reshape(-1, c_out)).float()
     if bias is not None:
         out = out + bias
     return out

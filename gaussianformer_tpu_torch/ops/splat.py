@@ -1,5 +1,6 @@
 """Gaussian -> voxel probabilistic splat (the prob variant of
-gaussianformer_tpu/ops/splat.py, forward only).
+gaussianformer_tpu/ops/splat.py), differentiable in the means, opacities,
+semantics and inverse covariances.
 
 Per point x and Gaussian g whose integer AABB holds x's voxel
 (getRect semantics of the reference's localagg_prob):
@@ -7,20 +8,20 @@ Per point x and Gaussian g whose integer AABB holds x's voxel
     w_g     = (2 pi)^-3/2 sqrt(det A_g) opa_g
     logits  = sum_g sem_g w_g e_g / sum_g w_g e_g   (uniform fallback)
     bin     = 1 - prod_g (1 - e_g);  density = sum_g e_g
-The per-point loop is kernel K4 (kernels/splat.py); this module packs the
-Gaussian tables and post-processes the accumulators.
+The per-point loop is kernel K4 and its backward kernel K7
+(kernels/splat.py); this module packs the Gaussian tables, post-processes
+the accumulators and prepares the backward's per-voxel cotangents, as the
+JAX package's ``_splat_bwd_pallas_batched`` does.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Tuple
 
 import torch
 
-from ..kernels.splat import postprocess_prob, splat_accumulate
-
-NORM_3D = math.pow(2.0 * math.pi, -1.5)
+from ..kernels.splat import (NORM_3D, postprocess_prob, splat_accumulate,
+                             splat_backward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,19 +79,54 @@ def pack_gaussians(means, opacities, semantics, scales, cov_inv6,
     return gdata, box.contiguous(), sem_aug.float().contiguous()
 
 
+class SplatProbFunction(torch.autograd.Function):
+    """One batch element's prob splat: K4 forward, which saves the logits,
+    the probability sums and ``one_minus`` (as ``f_fwd`` does); K7
+    backward on the per-voxel cotangents prepared here. Returns (logits
+    [N, C], bin_logits [N], density [N], labels [N] int32)."""
+
+    @staticmethod
+    def forward(ctx, means, opacities, semantics, cov_inv6, points, scales,
+                grid):
+        gdata, box, sem_aug = pack_gaussians(means, opacities, semantics,
+                                             scales, cov_inv6, grid)
+        acc, one_minus, labels = splat_accumulate(points, gdata, box,
+                                                  sem_aug, grid)
+        logits, bins, density = postprocess_prob(acc, one_minus)
+        c = semantics.shape[-1]
+        ctx.grid = grid
+        ctx.save_for_backward(points, gdata, opacities, semantics, box,
+                              logits, acc[:, c], one_minus)
+        ctx.mark_non_differentiable(labels)
+        return logits, bins, density, labels
+
+    @staticmethod
+    def backward(ctx, g_logits, g_bin, g_density, _g_labels):
+        (points, gdata, opa, sem, box, logits, prob_sum,
+         one_minus) = ctx.saved_tensors
+        covered = prob_sum > 1e-9
+        inv_ps = torch.where(covered, 1.0 / torch.where(
+            covered, prob_sum, torch.ones_like(prob_sum)),
+            torch.zeros_like(prob_sum))
+        gl = (g_logits * inv_ps[:, None]).contiguous()
+        scalars = torch.stack([(gl * logits).sum(-1), g_bin * one_minus,
+                               g_density], -1).contiguous()
+        gmu, gopa, gsem, gcov = splat_backward(
+            points, gdata, opa.float().contiguous(),
+            sem.float().contiguous(), box, gl, scalars, ctx.grid)
+        return gmu, gopa, gsem, gcov, None, None, None
+
+
 def splat_prob(points, means, opacities, semantics, scales, cov_inv6,
                grid: SplatGridSpec):
-    """Batched prob splat with final-occ labels.
+    """Batched prob splat with final-occ labels, differentiable in
+    ``means``, ``opacities``, ``semantics`` and ``cov_inv6``.
 
     points [B, N, 3]; means [B, P, 3]; opacities [B, P]; semantics
     [B, P, C]; scales [B, P, 3]; cov_inv6 [B, P, 6]. Returns (logits
     [B, N, C], bin_logits [B, N], density [B, N], labels [B, N] int32)."""
-    outs = []
-    for bi in range(points.shape[0]):
-        gdata, box, sem_aug = pack_gaussians(
-            means[bi], opacities[bi], semantics[bi], scales[bi],
-            cov_inv6[bi], grid)
-        acc, one_minus, labels = splat_accumulate(
-            points[bi].float().contiguous(), gdata, box, sem_aug, grid)
-        outs.append(postprocess_prob(acc, one_minus) + (labels,))
+    outs = [SplatProbFunction.apply(
+        means[bi], opacities[bi], semantics[bi], cov_inv6[bi],
+        points[bi].float().contiguous(), scales[bi], grid)
+        for bi in range(points.shape[0])]
     return tuple(torch.stack([o[k] for o in outs]) for k in range(4))

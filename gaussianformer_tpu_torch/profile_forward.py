@@ -1,15 +1,20 @@
-"""Where the time of one prob_gs6400 frame goes on the GPU.
+"""Where the time of one prob_gs6400 frame, or one train step, goes on
+the GPU.
 
-    python -m gaussianformer_tpu_torch.profile_forward [--frames 3]
+    python -m gaussianformer_tpu_torch.profile_forward [--frames 3] [--train]
 
-Runs the full-width forward (random weights from seed 0, the synthetic
-flagship batch) and prints:
+Runs the full-width forward under inference mode (random weights from
+seed 0, the synthetic flagship batch) or, with ``--train``, the full
+train step (forward with dropout, losses, backward, clipping, AdamW), and
+prints:
 
 - per-stage device time from CUDA events recorded around each stage
-  module (towers, FPN, lifter, encoder ops by kind, head), averaged over
-  ``--frames`` frames after one warm-up frame;
-- a ``torch.profiler`` trace of one frame: the device's busy time against
-  the frame's CUDA-event time, and the kernels with the most device time.
+  module's forward (towers, FPN, lifter, encoder ops by kind, head),
+  averaged over ``--frames`` frames or steps after one warm-up; with
+  ``--train`` also the backward (from the loss to the last gradient) and
+  the optimizer update (norm, clipping, AdamW);
+- a ``torch.profiler`` trace of one frame or step: the device's busy time
+  against its CUDA-event time, and the kernels with the most device time.
 
 Every number names the card it ran on. Needs a CUDA device.
 """
@@ -24,6 +29,29 @@ import torch
 from .configs import get_config
 from .data.synthetic import synthetic_batch
 from .models.segmentor import build_segmentor
+from .train.optim import build_optimizer
+from .train.step import apply_gradients, build_loss
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_kernels(events):
+    """The device-side kernel rows of ``prof.key_averages()`` with device
+    time (operator rows repeat their kernels' time, and so do the device
+    rows of user annotations such as ``Optimizer.step``)."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and _dev_us(e) > 0]
+
+
+def device_busy_ms(events) -> float:
+    """Summed device time of the kernels in ``prof.key_averages()``; 0
+    when the profiler recorded none."""
+    return sum(_dev_us(e) for e in device_kernels(events)) / 1e3
 
 
 class StageTimer:
@@ -56,6 +84,8 @@ class StageTimer:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of the forward")
     ns = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -71,13 +101,39 @@ def main():
     batch = synthetic_batch(1, cfg.input_size, (g.H, g.W, g.D), seed=0,
                             device="cuda")
 
+    phases = collections.defaultdict(float)
+    if ns.train:
+        opt, schedule = build_optimizer(model, cfg, 10000)
+        loss_fn = build_loss(cfg)
+
     def frame(seed):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        return model(batch["imgs"], batch["projection_mat"],
-                     batch["image_wh"], batch["occ_xyz"], generator=gen)
+        if not ns.train:
+            with torch.inference_mode():
+                return model(batch["imgs"], batch["projection_mat"],
+                             batch["image_wh"], batch["occ_xyz"],
+                             generator=gen)
+        # train.step.train_step, with events between its parts
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        model.zero_grad(set_to_none=True)
+        out = model(batch["imgs"], batch["projection_mat"],
+                    batch["image_wh"], batch["occ_xyz"], batch["occ_label"],
+                    batch["occ_cam_mask"], training=True, generator=gen)
+        ev[0].record()
+        loss, _ = loss_fn(out)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        apply_gradients(model, opt, schedule)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for name, i in (("losses", 0), ("backward (loss to gradients)", 1),
+                        ("update (norm, clip, AdamW)", 2)):
+            phases[name] += ev[i].elapsed_time(ev[i + 1])
 
     frame(0)
     torch.cuda.synchronize()
+    phases.clear()
 
     timer = StageTimer()
     timer.attach(model.img_backbone, "main tower (ResNet-101 + DCN)")
@@ -99,9 +155,15 @@ def main():
     end.record()
     torch.cuda.synchronize()
     frame_ms = start.elapsed_time(end) / ns.frames
-    print(f"# frame: {frame_ms:.3f} ms (CUDA events, mean of {ns.frames}, "
+    what = "train step" if ns.train else "frame"
+    print(f"# {what}: {frame_ms:.3f} ms (CUDA events, mean of {ns.frames}, "
           f"stage hooks on)")
-    for name, ms in timer.totals(ns.frames).items():
+    if ns.train:
+        print(f"# peak device memory: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    totals = dict(timer.totals(ns.frames))
+    totals.update({k: v / ns.frames for k, v in phases.items()})
+    for name, ms in totals.items():
         print(f"# stage {name}: {ms:.3f} ms ({100 * ms / frame_ms:.1f}%)")
 
     act = [torch.profiler.ProfilerActivity.CPU,
@@ -113,23 +175,18 @@ def main():
         torch.cuda.synchronize()
     traced_ms = start.elapsed_time(end)
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side rows only (operator rows repeat their kernels' time)
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    busy_ms = device_busy_ms(events)
     if busy_ms == 0:
         print("# profiler: no device time recorded (not measured)")
         return
-    print(f"# profiled frame: {traced_ms:.3f} ms; device busy "
-          f"{busy_ms:.3f} ms; idle share {1 - busy_ms / traced_ms:.3f}")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:25]:
-        print(f"# kernel {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+    # the profiler slows the host more than the device (over twice as much
+    # in a train step), so the share is given against both windows
+    print(f"# profiled {what}: {traced_ms:.3f} ms; device busy "
+          f"{busy_ms:.3f} ms; idle share {1 - busy_ms / traced_ms:.3f} of "
+          f"the profiled {what}, {1 - busy_ms / frame_ms:.3f} against the "
+          f"unprofiled mean")
+    for e in sorted(device_kernels(events), key=_dev_us, reverse=True)[:30]:
+        print(f"# kernel {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:110]}")
 
 

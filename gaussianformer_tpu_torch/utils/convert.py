@@ -179,26 +179,37 @@ def _leaf_param(path: str, val) -> Tuple[str, np.ndarray] | None:
     return None
 
 
-def jax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., "batch_stats": ...}`` of the JAX package's
-    BEVSegmentor (or of any of its sub-towers under the same names) ->
-    the port's ``state_dict``. Raises on any leaf it cannot place."""
+def _placements(variables: Mapping):
+    """(JAX path, port key, layout transform) of every leaf."""
     flat = _flatten(variables.get("params", {}))
     flat.update(_flatten(variables.get("batch_stats", {})))
     n_fpn = len({m.group(0) for m in map(
         re.compile(r"img_neck/lateral_\d+/").match, flat) if m})
-    sd = {}
     for path, val in flat.items():
         direct = _leaf_param(path, val)
         if direct is not None:
-            key, arr = direct
-        else:
-            mod, leaf = path.rsplit("/", 1)
-            tpath, kind = _module(mod, n_fpn)
-            if leaf not in _LEAF[kind]:
-                raise KeyError(f"unexpected leaf {leaf!r} at {path!r}")
-            tleaf, fn = _LEAF[kind][leaf]
-            key, arr = f"{tpath}.{tleaf}", fn(val)
-        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32,
-                                            order="C", copy=True))
-    return sd
+            yield path, direct[0], direct[1]
+            continue
+        mod, leaf = path.rsplit("/", 1)
+        tpath, kind = _module(mod, n_fpn)
+        if leaf not in _LEAF[kind]:
+            raise KeyError(f"unexpected leaf {leaf!r} at {path!r}")
+        tleaf, fn = _LEAF[kind][leaf]
+        yield path, f"{tpath}.{tleaf}", fn(val)
+
+
+def jax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` of the JAX package's
+    BEVSegmentor (or of any of its sub-towers under the same names) ->
+    the port's ``state_dict``. Raises on any leaf it cannot place. A tree
+    of gradients or updates in the shape of the params converts the same
+    way (``{"params": grads}``)."""
+    return {key: torch.from_numpy(np.array(arr, dtype=np.float32,
+                                           order="C", copy=True))
+            for _, key, arr in _placements(variables)}
+
+
+def jax_paths(variables: Mapping) -> Dict[str, str]:
+    """Port ``state_dict`` key -> the "/"-joined JAX path of the same
+    leaf (under ``params`` or ``batch_stats``)."""
+    return {key: path for path, key, _ in _placements(variables)}

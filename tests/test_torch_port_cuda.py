@@ -1,16 +1,26 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at small shapes with the edge cases the flagship forward does not
+card, at small shapes with the edge cases the flagship path does not
 reach: DCN offsets of several pixels (corners outside the image), masked
 and exhausted FPS, fp32 deformable features, a splat with sparse and dense
-coverage. Marked ``cuda``; they skip on a host without a CUDA device. On
-the card (``--noconftest``: tests/conftest.py imports JAX):
-``python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda``."""
+coverage; and the backward kernels K5-K7 against their plain backward
+versions on random cotangents. Marked ``cuda``; they skip on a host
+without a CUDA device. On the card (``--noconftest``: tests/conftest.py
+imports JAX):
+``python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda``.
+
+Tolerances: a bf16 output may differ by a rounding flip of its fp32 sum,
+so 2^-7 max|ref| (two bf16 ulps at the top of the range); fp32 gradients
+summed over thousands of terms in another order (atomics, in an order that
+changes from run to run) get 1e-3 max|ref|."""
 import pytest
 import torch
 
 from gaussianformer_tpu_torch.kernels import dcn, deformable, fps, splat
 from gaussianformer_tpu_torch.ops.covariance import build_covariance_inverse6
 from gaussianformer_tpu_torch.ops.splat import SplatGridSpec, pack_gaussians
+
+BF16_TOL = 2.0 ** -7
+SUM_TOL = 1e-3
 
 pytestmark = pytest.mark.cuda
 
@@ -71,7 +81,9 @@ def test_deformable_kernel_matches_plain(gen, dtype):
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-def test_splat_kernel_matches_plain(gen):
+def _splat_case(gen):
+    """A raster 40 x 30 x 8 grid and 700 Gaussians of mixed radii, some
+    boxes reaching past the grid."""
     grid = SplatGridSpec(H=40, W=30, D=8, pc_min=(-10.0, -7.5, -2.0),
                          grid_size=0.5, scale_multiplier=3.0)
     axes = [torch.arange(n, device="cuda") * 0.5 + 0.25 + lo
@@ -87,9 +99,77 @@ def test_splat_kernel_matches_plain(gen):
     sem = torch.softmax(randn(gen, p, c - 1), -1)
     sem = torch.cat([sem, torch.zeros(p, 1, device="cuda")], -1)
     opa = torch.rand(p, generator=gen, device="cuda")
+    return grid, pts, means, opa, sem, scales, cov6
+
+
+def test_splat_kernel_matches_plain(gen):
+    grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
     tables = pack_gaussians(means, opa, sem, scales, cov6, grid)
     got = splat.splat_accumulate_cuda(pts, *tables, grid)
     ref = splat.splat_accumulate_plain(pts, *tables, grid)
     assert (got[0] - ref[0]).abs().max() <= 1e-4 * ref[0].abs().max()
     assert (got[1] - ref[1]).abs().max() <= 1e-4
     assert (got[2] == ref[2]).float().mean() >= 0.999
+
+
+def _close(got, ref, tol, name):
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= tol * ref.float().abs().max(), (name, err.item())
+
+
+def test_dcn_backward_kernel_matches_plain(gen):
+    """K5: two input-channel chunks, C_out not a multiple of the tiles, and
+    enough pixels (2460) that the weight gradient splits them."""
+    b, h, w, cin, cout = 2, 30, 41, 128, 136
+    x = randn(gen, b, h, w, cin).bfloat16()
+    om = randn(gen, b, h, w, 27, scale=3.0)
+    offset, mask = om[..., :18], torch.sigmoid(om[..., 18:])
+    weight = randn(gen, 3, 3, cin, cout, scale=0.05).bfloat16()
+    g_out = randn(gen, b, h, w, cout).bfloat16()
+    got = dcn.deform_conv2d_backward_cuda(x, offset, mask, weight, g_out)
+    ref = dcn.deform_conv2d_backward_plain(x, offset, mask, weight, g_out)
+    for name, gt, rf, tol in zip(("g_x", "g_offset", "g_mask", "g_weight"),
+                                 got, ref, (BF16_TOL, SUM_TOL, SUM_TOL,
+                                            BF16_TOL)):
+        assert gt.dtype == rf.dtype and gt.shape == rf.shape, name
+        _close(gt, rf, tol, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deformable_backward_kernel_matches_plain(gen, dtype):
+    """K6: locations past the image edges (the strict-inside gate and the
+    out-of-level corners) and both feature dtypes."""
+    b, cams, c, g, k, p = 2, 3, 128, 4, 5, 300
+    shapes = ((40, 72), (20, 36), (10, 18), (5, 9))
+    feats = [randn(gen, b, cams, hh, ww, c).to(dtype) for hh, ww in shapes]
+    loc = torch.rand(b, p * k, cams, 2, generator=gen,
+                     device="cuda") * 1.2 - 0.1
+    wts = torch.rand(b, p * k, cams, 4, g, generator=gen, device="cuda")
+    g_out = randn(gen, b, p, c)
+    got = deformable.deformable_aggregation_backward_cuda(feats, loc, wts,
+                                                          k, g_out)
+    ref = deformable.deformable_aggregation_backward_plain(feats, loc, wts,
+                                                           k, g_out)
+    feat_tol = BF16_TOL if dtype == torch.bfloat16 else SUM_TOL
+    for lvl in range(4):
+        assert got[0][lvl].dtype == dtype
+        _close(got[0][lvl], ref[0][lvl], feat_tol, f"level {lvl}")
+    _close(got[1], ref[1], SUM_TOL, "g_points_2d")
+    _close(got[2], ref[2], SUM_TOL, "g_weights")
+
+
+def test_splat_backward_kernel_matches_plain(gen):
+    """K7 on random per-voxel cotangents; and the wrapper refuses points
+    that are not the raster grid."""
+    grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
+    gdata, box, _ = pack_gaussians(means, opa, sem, scales, cov6, grid)
+    n, c = pts.shape[0], sem.shape[1]
+    gl = randn(gen, n, c)
+    scalars = randn(gen, n, 3)
+    args = (pts, gdata, opa, sem, box, gl, scalars, grid)
+    got = splat.splat_backward_cuda(*args)
+    ref = splat.splat_backward_plain(*args)
+    for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got, ref):
+        _close(gt, rf, SUM_TOL, name)
+    with pytest.raises(ValueError):
+        splat.splat_backward_cuda(pts.flip(0).contiguous(), *args[1:])

@@ -42,7 +42,8 @@ def jax_tiny_segmentor(cfg=TINY):
         random_samples=cfg.random_samples,
         num_depth_samples=cfg.num_depth_samples,
         num_learnable_pts=cfg.num_learnable_pts,
-        compute_dtype=cfg.compute_dtype)
+        compute_dtype=cfg.compute_dtype, attn_drop=cfg.attn_drop,
+        ffn_drop=cfg.ffn_drop)
     seg = jcfg.segmentor_cfg()
     towers = dict(depth=cfg.depth, base_channels=cfg.base_channels,
                   stage_with_dcn=cfg.stage_with_dcn)
@@ -97,11 +98,11 @@ def tiny_batch(cfg=TINY):
                            device="cpu")
 
 
-def tiny_pair(seed: int = 0):
+def tiny_pair(seed: int = 0, cfg=TINY):
     """(jax model, jax variables, port model, batch) with shared weights."""
     batch = tiny_batch()
     jb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
-    jmodel = jax_tiny_segmentor()
+    jmodel = jax_tiny_segmentor(cfg)
     key = jax.random.PRNGKey(0)
     shapes = jax.eval_shape(lambda: jmodel.init(
         {"params": key, "dropout": key}, jb["imgs"], jb["projection_mat"],
@@ -110,7 +111,7 @@ def tiny_pair(seed: int = 0):
     variables = random_variables(dict(shapes), seed)
     # disable the lifter's no-occupancy bin: every candidate stays valid
     variables["params"]["lifter"]["projection"]["bias"][-1] = -1e4
-    port = BEVSegmentor(TINY).eval()
+    port = BEVSegmentor(cfg).eval()
     port.load_state_dict(jax_to_state_dict(variables))
     port.lifter.deterministic_sampling = True
     port.lifter.depth_min, port.lifter.depth_max = DEPTH_MIN, DEPTH_MAX
@@ -127,8 +128,9 @@ def slice_outputs():
         occ_cam_mask=jb["occ_cam_mask"], training=False,
         rng=jax.random.PRNGKey(0)))
     jout = fwd(variables)
-    tout = port(batch["imgs"], batch["projection_mat"], batch["image_wh"],
-                batch["occ_xyz"])
+    with torch.inference_mode():
+        tout = port(batch["imgs"], batch["projection_mat"],
+                    batch["image_wh"], batch["occ_xyz"])
     return jout, tout
 
 
