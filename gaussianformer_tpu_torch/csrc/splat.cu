@@ -1,5 +1,6 @@
-// K4: probabilistic Gaussian -> voxel splat, forward, with the final-occ
-// label epilogue.
+// K4: Gaussian -> voxel splat, forward, with the final-occ label epilogue,
+// in both variants of the TPU kernel: `prob` (GaussianFormer-2) and
+// `additive` (the v1 models).
 //
 // Replaces: gaussianformer_tpu/ops/pallas/splat_kernel.py splat_raw_pallas
 //           (kernel `_kernel`, with emit_labels), reached through
@@ -10,12 +11,16 @@
 // _chunk_step):
 //   e      = exp(min(-1/2 (mu_g - x)^T A_g (mu_g - x), 30))
 //   acc[c] += e * sem_aug[g, c]     sem_aug = [sem * w, w, 1] (packed by the
-//                                   caller: w = (2 pi)^-1.5 sqrt(det A) opa)
-//   om     *= 1 - e
-// then, per point, the label epilogue of the TPU kernel and of
-// ops/splat.py::_postprocess_prob + _labels_xla: normalise by the
+//                                   caller: w = (2 pi)^-1.5 sqrt(det A) opa
+//                                   for prob, w = opa for additive)
+//   om     *= 1 - e                 (prob only)
+// then, per point, the label epilogue of the TPU kernel. prob
+// (ops/splat.py::_postprocess_prob + _labels_xla): normalise by the
 // probability sum with the uniform fallback when it is <= 1e-9, combine
 // semantics with the geometry bin (combine_geosem), first-index argmax.
+// additive (_labels_xla, splat_kernel.py mode "additive"): first-index
+// argmax of the raw sums acc[:C]; a voxel that no box holds is all zeros
+// and gets label 0.
 //
 // Bound on the H100: flops. The output (640,000 x 20 floats + labels) and
 // the Gaussian table are tens of MB; the work is the exponent and the
@@ -30,7 +35,10 @@
 // ballots, so the accumulation order is deterministic), and every thread
 // then runs the per-point AABB test and, inside it, the exponent and the
 // accumulation in registers. Per-tile binning of the Gaussians (the
-// reference's localagg_prob) is the next step.
+// reference's localagg_prob) is the next step: with the v1 models' many
+// small boxes (25,601 or 144,000 Gaussians of 1-4 voxels radius) the scan
+// of every box by every block is most of the time. The variant is a
+// template parameter, so the prob kernel's code is as it was.
 #include <math.h>
 
 #include "common.cuh"
@@ -40,7 +48,7 @@ namespace {
 constexpr int TILE = 256;
 constexpr int WARPS = TILE / 32;
 
-template <int MAXC>
+template <int MAXC, bool PROB>
 __global__ void __launch_bounds__(TILE)
 splat_kernel(const float* __restrict__ pts, int N,
              const float* __restrict__ gdata, const int* __restrict__ box,
@@ -148,7 +156,7 @@ splat_kernel(const float* __restrict__ pts, int N,
           if (c < C) a[c] += e * sr[c];
         ps += e * sr[C];
         dens += e * sr[C + 1];
-        om *= 1.f - e;
+        if (PROB) om *= 1.f - e;
       }
     }
     __syncthreads();
@@ -161,8 +169,19 @@ splat_kernel(const float* __restrict__ pts, int N,
     if (c < C) ao[c] = a[c];
   ao[C] = ps;
   ao[C + 1] = dens;
-  om_out[n] = om;
-  if (labels != nullptr) {
+  if (PROB) om_out[n] = om;
+  if (labels != nullptr && !PROB) {
+    float best = -INFINITY;
+    int lab = 0;
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      if (c < C && a[c] > best) {
+        best = a[c];
+        lab = c;
+      }
+    }
+    labels[n] = lab;
+  } else if (labels != nullptr) {
     const bool covered = ps > 1e-9f;
     const float denom = covered ? ps : 1.f;
     const float uni = 1.f / (float)(C - 1);
@@ -184,18 +203,18 @@ splat_kernel(const float* __restrict__ pts, int N,
   }
 }
 
-template <int MAXC>
+template <int MAXC, bool PROB>
 int launch(const float* pts, int N, const float* gdata, const int* box,
            const float* sem, int P, int C, const float* pc, float gs, int GH,
            int GW, int GD, float* acc, float* om, int* labels,
            cudaStream_t st) {
   const size_t smem = (size_t)TILE * (9 + 6 + C + 2) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      splat_kernel<MAXC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      splat_kernel<MAXC, PROB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + TILE - 1) / TILE;
-  splat_kernel<MAXC><<<blocks, TILE, smem, st>>>(
+  splat_kernel<MAXC, PROB><<<blocks, TILE, smem, st>>>(
       pts, N, gdata, box, sem, P, C, pc[0], pc[1], pc[2], gs, GH, GW, GD,
       acc, om, labels);
   return (int)cudaGetLastError();
@@ -216,12 +235,33 @@ GF_EXPORT int gf_splat_forward(const void* pts, int N, const void* gdata,
   cudaStream_t st = (cudaStream_t)stream;
   if (C < 2 || C > 32) return -1;
   if (C == 18)
-    return launch<18>((const float*)pts, N, (const float*)gdata,
+    return launch<18, true>((const float*)pts, N, (const float*)gdata,
                       (const int*)box, (const float*)sem_aug, P, C, pc_min,
                       gs, GH, GW, GD, (float*)acc, (float*)one_minus,
                       (int*)labels, st);
-  return launch<32>((const float*)pts, N, (const float*)gdata,
+  return launch<32, true>((const float*)pts, N, (const float*)gdata,
                     (const int*)box, (const float*)sem_aug, P, C, pc_min, gs,
                     GH, GW, GD, (float*)acc, (float*)one_minus, (int*)labels,
                     st);
+}
+
+// The additive variant: sem_aug [P, C + 2] = (sem * opa, opa, 1); outputs
+// acc [N, C + 2] and labels [N] int32 (or null), no one_minus.
+GF_EXPORT int gf_splat_forward_additive(const void* pts, int N,
+                                        const void* gdata, const void* box,
+                                        const void* sem_aug, int P, int C,
+                                        const float* pc_min, float gs, int GH,
+                                        int GW, int GD, void* acc,
+                                        void* labels, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C < 2 || C > 32) return -1;
+  if (C == 18)
+    return launch<18, false>((const float*)pts, N, (const float*)gdata,
+                             (const int*)box, (const float*)sem_aug, P, C,
+                             pc_min, gs, GH, GW, GD, (float*)acc, nullptr,
+                             (int*)labels, st);
+  return launch<32, false>((const float*)pts, N, (const float*)gdata,
+                           (const int*)box, (const float*)sem_aug, P, C,
+                           pc_min, gs, GH, GW, GD, (float*)acc, nullptr,
+                           (int*)labels, st);
 }

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat": 0,
-            "dcn_bwd": 0, "deformable_bwd": 0, "splat_bwd": 0}
+            "splat_additive": 0, "dcn_bwd": 0, "deformable_bwd": 0,
+            "splat_bwd": 0, "splat_bwd_additive": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -138,6 +139,13 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.gf_splat_backward.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
                                      P, P, P, P, P]
     so.gf_splat_backward.restype = I
+    so.gf_splat_forward_additive.argtypes = [P, I, P, P, P, I, I,
+                                             ctypes.POINTER(F), F, I, I, I,
+                                             P, P, P]
+    so.gf_splat_forward_additive.restype = I
+    so.gf_splat_backward_additive.argtypes = [P, P, P, P, P, P, I, I, I, I,
+                                              I, P, P, P, P, P, P]
+    so.gf_splat_backward_additive.restype = I
     return so
 
 

@@ -1,5 +1,7 @@
-"""K4 / K7: probabilistic Gaussian -> voxel splat with the final-occ label
-epilogue, and its backward.
+"""K4 / K7: Gaussian -> voxel splat with the final-occ label epilogue, and
+its backward, in the two variants of the JAX package: ``prob`` (the
+GaussianFormer-2 GMM superposition) and ``additive`` (the v1 models' plain
+sum of opacity-weighted semantics).
 
 Kernels: ``csrc/splat.cu`` (K4, replaces the TPU kernel
 ``gaussianformer_tpu/ops/pallas/splat_kernel.py::splat_raw_pallas`` with
@@ -14,10 +16,13 @@ epilogue of ``_postprocess_prob`` and ``_labels_xla``; and
 Inputs are the packed tables of ``ops/splat.py::pack_gaussians``:
 ``gdata`` [P, 9] = (mean, inverse covariance [xx, yy, zz, xy, yz, xz]),
 ``box`` [P, 6] int32 = (voxel lo xyz, voxel hi xyz) of each Gaussian's
-AABB, ``sem_aug`` [P, C + 2] = (sem * w, w, 1). Outputs per point:
-``acc`` [N, C + 2] (semantic sums, probability sum, density),
-``one_minus`` [N] = prod(1 - e) and ``labels`` [N] int32. ``grid`` is an
-``ops.splat.SplatGridSpec``.
+AABB, ``sem_aug`` [P, C + 2] = (sem * w, w, 1), with w = (2 pi)^-1.5
+sqrt(det A) opa for ``prob`` and w = opa for ``additive``. Outputs per
+point: ``acc`` [N, C + 2] (semantic sums, sum of w e, density),
+``one_minus`` [N] = prod(1 - e) (``prob``; None for ``additive``) and
+``labels`` [N] int32: combine_geosem's argmax for ``prob``, the first-index
+argmax of the raw sums for ``additive`` (0 where no box holds the voxel).
+``grid`` is an ``ops.splat.SplatGridSpec``.
 """
 from __future__ import annotations
 
@@ -51,22 +56,38 @@ def combine_geosem(logits, bins):
                       1.0 - bins[..., None]], dim=-1)
 
 
-def labels_from_acc(acc, one_minus):
-    """Final-occ labels: normalise, combine_geosem, first-index argmax.
-    [N, C + 2], [N] -> [N] int32."""
+VARIANTS = ("prob", "additive")
+
+
+def _check_variant(variant: str):
+    if variant not in VARIANTS:
+        raise ValueError(f"splat variant {variant!r} is not one of "
+                         f"{VARIANTS}")
+
+
+def labels_from_acc(acc, one_minus=None):
+    """Final-occ labels [N] int32 from acc [N, C + 2]. With ``one_minus``
+    [N] (prob): normalise, combine_geosem, first-index argmax. Without
+    (additive): first-index argmax of the raw sums."""
+    if one_minus is None:
+        return torch.argmax(acc[:, :-2], dim=-1).to(torch.int32)
     logits, bins, _ = postprocess_prob(acc, one_minus)
     return torch.argmax(combine_geosem(logits, bins), dim=-1).to(torch.int32)
 
 
 def splat_accumulate_plain(points, gdata, box, sem_aug, grid,
-                           chunk_n: int = 65536, chunk_g: int = 128):
+                           variant: str = "prob", chunk_n: int = 65536,
+                           chunk_g: int = 128):
     """Dense (point-chunk x Gaussian-chunk) blocks; fp32 throughout."""
+    _check_variant(variant)
+    prob = variant == "prob"
     n = points.shape[0]
     p = gdata.shape[0]
     pint = grid.voxelize(points)
     acc = torch.zeros(n, sem_aug.shape[1], dtype=torch.float32,
                       device=points.device)
-    one_minus = torch.ones(n, dtype=torch.float32, device=points.device)
+    one_minus = (torch.ones(n, dtype=torch.float32, device=points.device)
+                 if prob else None)
     for n0 in range(0, n, chunk_n):
         pts = points[n0:n0 + chunk_n]
         pi = pint[n0:n0 + chunk_n]
@@ -84,12 +105,15 @@ def splat_accumulate_plain(points, gdata, box, sem_aug, grid,
                       & (pi[:, None, :] <= bx[None, :, 3:6])).all(-1)
             e = torch.exp(torch.clamp_max(logit, 30.0)) * inside
             acc[n0:n0 + chunk_n] += e @ sem_aug[g0:g0 + chunk_g]
-            one_minus[n0:n0 + chunk_n] *= torch.prod(1.0 - e, dim=1)
+            if prob:
+                one_minus[n0:n0 + chunk_n] *= torch.prod(1.0 - e, dim=1)
     return acc, one_minus, labels_from_acc(acc, one_minus)
 
 
-def splat_accumulate_cuda(points, gdata, box, sem_aug, grid):
+def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
+                          variant: str = "prob"):
     """Launch ``csrc/splat.cu``: one block of 256 points per tile."""
+    _check_variant(variant)
     name = "splat_accumulate"
     _lib.require_cuda(name, points=points, gdata=gdata, box=box,
                       sem_aug=sem_aug)
@@ -104,9 +128,18 @@ def splat_accumulate_cuda(points, gdata, box, sem_aug, grid):
             or box.shape != (p, 6) or sem_aug.shape[0] != p):
         raise ValueError(f"{name}: bad table shapes")
     acc = torch.empty(n, ca, dtype=torch.float32, device=points.device)
-    one_minus = torch.empty(n, dtype=torch.float32, device=points.device)
     labels = torch.empty(n, dtype=torch.int32, device=points.device)
     pc = (ctypes.c_float * 3)(*grid.pc_min)
+    if variant == "additive":
+        code = _lib.lib().gf_splat_forward_additive(
+            points.data_ptr(), n, gdata.data_ptr(), box.data_ptr(),
+            sem_aug.data_ptr(), p, ca - 2, pc, float(grid.grid_size),
+            grid.H, grid.W, grid.D, acc.data_ptr(), labels.data_ptr(),
+            _lib.stream_ptr(points))
+        _lib.check(code, name)
+        _lib.LAUNCHES["splat_additive"] += 1
+        return acc, None, labels
+    one_minus = torch.empty(n, dtype=torch.float32, device=points.device)
     code = _lib.lib().gf_splat_forward(
         points.data_ptr(), n, gdata.data_ptr(), box.data_ptr(),
         sem_aug.data_ptr(), p, ca - 2, pc, float(grid.grid_size),
@@ -117,12 +150,14 @@ def splat_accumulate_cuda(points, gdata, box, sem_aug, grid):
     return acc, one_minus, labels
 
 
-def splat_accumulate(points, gdata, box, sem_aug, grid):
+def splat_accumulate(points, gdata, box, sem_aug, grid,
+                     variant: str = "prob"):
     """Splat accumulators and labels: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors."""
     if points.device.type == "cpu":
-        return splat_accumulate_plain(points, gdata, box, sem_aug, grid)
-    return splat_accumulate_cuda(points, gdata, box, sem_aug, grid)
+        return splat_accumulate_plain(points, gdata, box, sem_aug, grid,
+                                      variant)
+    return splat_accumulate_cuda(points, gdata, box, sem_aug, grid, variant)
 
 
 NORM_3D = (2.0 * math.pi) ** -1.5
@@ -137,14 +172,17 @@ def _det_terms(gdata, opa):
     return det, sqrt_det, NORM_3D * sqrt_det * opa
 
 
-def _finish_backward(gdata, opa, sd, sdd, gw, gsem):
+def _finish_backward(gdata, opa, sd, sdd, gw, gsem, prob: bool):
     """Fold the per-Gaussian sums into (gmu, gopa, gsem, gcov): the
-    exponent's moments and the det(A) term of w."""
+    exponent's moments and, for the prob variant, the det(A) term of w."""
     a = gdata[:, 3:9]
     xx, yy, zz, xy, yz, xz = a.unbind(-1)
     gmu = -torch.stack([xx * sd[:, 0] + xy * sd[:, 1] + xz * sd[:, 2],
                         xy * sd[:, 0] + yy * sd[:, 1] + yz * sd[:, 2],
                         xz * sd[:, 0] + yz * sd[:, 1] + zz * sd[:, 2]], -1)
+    gcov = torch.cat([-0.5 * sdd[:, :3], -sdd[:, 3:]], -1)
+    if not prob:
+        return gmu, gw, gsem, gcov
     det, sqrt_det, _ = _det_terms(gdata, opa)
     gopa = gw * NORM_3D * sqrt_det
     gdet = torch.where(det > 1e-30,
@@ -154,25 +192,27 @@ def _finish_backward(gdata, opa, sd, sdd, gw, gsem):
                         xx * yy - xy * xy, 2.0 * (yz * xz - zz * xy),
                         2.0 * (xy * xz - xx * yz), 2.0 * (xy * yz - yy * xz)],
                        -1)
-    gcov = (torch.cat([-0.5 * sdd[:, :3], -sdd[:, 3:]], -1)
-            + gdet[:, None] * ddet)
-    return gmu, gopa, gsem, gcov
+    return gmu, gopa, gsem, gcov + gdet[:, None] * ddet
 
 
 @torch.no_grad()
 def splat_backward_plain(points, gdata, opa, sem, box, gl, scalars, grid,
-                         chunk_n: int = 65536, chunk_g: int = 128):
-    """Hand-derived VJP of the prob splat in dense (point-chunk x
-    Gaussian-chunk) blocks, fp32 (``_splat_bwd_single``). ``gl`` [N, C] is
-    the covered, prob_sum-normalised logits cotangent; ``scalars`` [N, 3]
-    holds (dot_gl, bin_term, g_density). The exponent's moments are summed
-    in the displacement d = mu - x. Returns (gmu [P, 3], gopa [P],
-    gsem [P, C], gcov [P, 6])."""
+                         variant: str = "prob", chunk_n: int = 65536,
+                         chunk_g: int = 128):
+    """Hand-derived VJP of the splat in dense (point-chunk x
+    Gaussian-chunk) blocks, fp32 (``_splat_bwd_single``). prob: ``gl``
+    [N, C] is the covered, prob_sum-normalised logits cotangent and
+    ``scalars`` [N, 3] holds (dot_gl, bin_term, g_density). additive:
+    ``gl`` is the logits cotangent itself and ``scalars`` is None. The
+    exponent's moments are summed in the displacement d = mu - x. Returns
+    (gmu [P, 3], gopa [P], gsem [P, C], gcov [P, 6])."""
+    _check_variant(variant)
+    prob = variant == "prob"
     n = points.shape[0]
     p, c = sem.shape
     dev = points.device
     pint = grid.voxelize(points)
-    _, _, w = _det_terms(gdata, opa)
+    w = _det_terms(gdata, opa)[2] if prob else opa
     f32 = dict(dtype=torch.float32, device=dev)
     sd = torch.zeros(p, 3, **f32)
     sdd = torch.zeros(p, 6, **f32)
@@ -182,7 +222,8 @@ def splat_backward_plain(points, gdata, opa, sem, box, gl, scalars, grid,
         pts = points[n0:n0 + chunk_n]
         pi = pint[n0:n0 + chunk_n]
         gl_n = gl[n0:n0 + chunk_n]
-        dot_gl, bin_term, g_dens = scalars[n0:n0 + chunk_n].unbind(-1)
+        if prob:
+            dot_gl, bin_term, g_dens = scalars[n0:n0 + chunk_n].unbind(-1)
         for g0 in range(0, p, chunk_g):
             sl = slice(g0, g0 + chunk_g)
             gd, bx = gdata[sl], box[sl]
@@ -194,10 +235,13 @@ def splat_backward_plain(points, gdata, opa, sem, box, gl, scalars, grid,
             inside = ((pi[:, None, :] >= bx[None, :, 0:3])
                       & (pi[:, None, :] <= bx[None, :, 3:6])).all(-1)
             power = torch.exp(torch.clamp_max(logit, 30.0)) * inside
-            gprob = gl_n @ sem[sl].T - dot_gl[:, None]
-            one_m = 1.0 - torch.clamp_max(power, 1.0 - 1e-9) + 1e-9
-            gpower = (g_dens[:, None] + bin_term[:, None] / one_m
-                      + gprob * w[None, sl])
+            gprob = gl_n @ sem[sl].T
+            gpower = gprob * w[None, sl]
+            if prob:
+                gprob = gprob - dot_gl[:, None]
+                one_m = 1.0 - torch.clamp_max(power, 1.0 - 1e-9) + 1e-9
+                gpower = (g_dens[:, None] + bin_term[:, None] / one_m
+                          + gprob * w[None, sl])
             gw[sl] += (gprob * power).sum(0)
             gsem[sl] += (power * w[None, sl]).T @ gl_n
             glogit = gpower * power * (logit < 30.0)
@@ -207,7 +251,7 @@ def splat_backward_plain(points, gdata, opa, sem, box, gl, scalars, grid,
                                     for i, j in ((0, 0), (1, 1), (2, 2),
                                                  (0, 1), (1, 2), (0, 2))],
                                    -1)
-    return _finish_backward(gdata, opa, sd, sdd, gw, gsem)
+    return _finish_backward(gdata, opa, sd, sdd, gw, gsem, prob)
 
 
 def _require_raster(name, points, grid):
@@ -225,20 +269,31 @@ def _require_raster(name, points, grid):
                          f"order")
 
 
-def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid):
+def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid,
+                        variant: str = "prob"):
     """Launch ``csrc/splat_bwd.cu``: one block per Gaussian over the
-    voxels of its AABB. The points must be the raster voxel grid."""
+    voxels of its AABB (the additive variant walks boxes of more than 8192
+    voxels in segments, in a second launch). The points must be the raster
+    voxel grid. ``scalars`` is None for the additive variant."""
+    _check_variant(variant)
     name = "splat_backward"
     p, c = sem.shape
+    prob = variant == "prob"
+    if prob == (scalars is None):
+        raise ValueError(f"{name}: the prob variant, and only it, takes "
+                         f"scalars")
     tensors = dict(points=points, gdata=gdata, opa=opa, sem=sem, box=box,
-                   gl=gl, scalars=scalars)
+                   gl=gl)
+    if prob:
+        tensors["scalars"] = scalars
     _lib.require_cuda(name, **tensors)
     for key, t in tensors.items():
         _lib.require_dtype(name, key, t,
                            torch.int32 if key == "box" else torch.float32)
     n = points.shape[0]
     if (gdata.shape != (p, 9) or opa.shape != (p,) or box.shape != (p, 6)
-            or gl.shape != (n, c) or scalars.shape != (n, 3)):
+            or gl.shape != (n, c)
+            or (prob and scalars.shape != (n, 3))):
         raise ValueError(f"{name}: bad table shapes")
     _require_raster(name, points, grid)
     f32 = dict(dtype=torch.float32, device=points.device)
@@ -246,6 +301,18 @@ def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid):
     gopa = torch.empty(p, **f32)
     gsem = torch.empty(p, c, **f32)
     gcov = torch.empty(p, 6, **f32)
+    if not prob:
+        # big[0] counts, big[1:] lists the boxes the kernel walks in segments
+        big = torch.zeros(p + 1, dtype=torch.int32, device=points.device)
+        code = _lib.lib().gf_splat_backward_additive(
+            points.data_ptr(), gdata.data_ptr(), opa.data_ptr(),
+            sem.data_ptr(), box.data_ptr(), gl.data_ptr(), p, c, grid.H,
+            grid.W, grid.D, gmu.data_ptr(), gopa.data_ptr(),
+            gsem.data_ptr(), gcov.data_ptr(), big.data_ptr(),
+            _lib.stream_ptr(points))
+        _lib.check(code, name)
+        _lib.LAUNCHES["splat_bwd_additive"] += 1
+        return gmu, gopa, gsem, gcov
     code = _lib.lib().gf_splat_backward(
         points.data_ptr(), gdata.data_ptr(), opa.data_ptr(), sem.data_ptr(),
         box.data_ptr(), gl.data_ptr(), scalars.data_ptr(), p, c, grid.H,
@@ -256,11 +323,12 @@ def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid):
     return gmu, gopa, gsem, gcov
 
 
-def splat_backward(points, gdata, opa, sem, box, gl, scalars, grid):
+def splat_backward(points, gdata, opa, sem, box, gl, scalars, grid,
+                   variant: str = "prob"):
     """Per-Gaussian splat gradients: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors."""
     if points.device.type == "cpu":
         return splat_backward_plain(points, gdata, opa, sem, box, gl,
-                                    scalars, grid)
+                                    scalars, grid, variant)
     return splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars,
-                               grid)
+                               grid, variant)

@@ -1,6 +1,8 @@
-"""Occupancy loss of the prob configs: class-weighted CE on probabilities
-plus Lovász (gaussianformer_tpu/losses/occupancy.py, reference
-loss/occupancy_loss.py). Masked voxels get zero weight instead of being
+"""Occupancy loss: class-weighted CE plus Lovász
+(gaussianformer_tpu/losses/occupancy.py, reference loss/occupancy_loss.py).
+The prob configs' predictions are probabilities (CE without softmax); the
+v1 configs' are logits (``lovasz_use_softmax``: CE with log-softmax, and
+Lovász on their softmax). Masked voxels get zero weight instead of being
 removed: the CE divides by the summed weights of the voxels that take
 part, and Lovász masks them, so the means are those of the reference.
 Focal, dice and the sem/geo scal terms are not ported yet."""
@@ -29,6 +31,7 @@ class OccupancyLossCfg:
     ce_weight: float = 10.0
     lovasz_weight: float = 1.0
     lovasz_ignore: int = 17
+    lovasz_use_softmax: bool = False   # False: inputs are probabilities
     class_weight: Tuple[float, ...] = MANUAL_CLASS_WEIGHT
 
 
@@ -41,23 +44,38 @@ def weighted_ce_probs(probs, labels, class_weights, valid):
     return -(picked * w).sum() / w.sum().clamp_min(1e-12)
 
 
+def weighted_ce_with_softmax(logits, labels, class_weights, valid):
+    """torch.nn.CrossEntropyLoss(weight, 'mean'): weighted NLL of the
+    log-softmax, over the summed weights of the participating voxels."""
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = torch.gather(logp, 1, labels[:, None])[:, 0]
+    w = class_weights[labels] * valid
+    return -(picked * w).sum() / w.sum().clamp_min(1e-12)
+
+
 def occupancy_loss(cfg: OccupancyLossCfg, pred_occ, sampled_label,
                    occ_mask):
-    """pred_occ: list of [B, N, C] probabilities; sampled_label [B, N];
-    occ_mask [B, N] bool. Mean over the listed layers of
-    ce_weight * CE + lovasz_weight * Lovász."""
+    """pred_occ: list of [B, N, C] probabilities (logits with
+    ``lovasz_use_softmax``); sampled_label [B, N]; occ_mask [B, N] bool.
+    Mean over the listed layers of ce_weight * CE + lovasz_weight *
+    Lovász."""
     class_weights = balanced_class_weights(cfg.class_weight,
                                            device=sampled_label.device)
     tot = 0.0
-    for probs in pred_occ:
-        b, n, c = probs.shape
-        flat = probs.reshape(b * n, c)
+    for pred in pred_occ:
+        b, n, c = pred.shape
+        flat = pred.reshape(b * n, c)
         labels = sampled_label.reshape(b * n).long()
         vf = occ_mask.reshape(b * n).float()
-        loss = cfg.ce_weight * weighted_ce_probs(flat, labels,
-                                                 class_weights, vf)
+        if cfg.lovasz_use_softmax:
+            ce = weighted_ce_with_softmax(flat, labels, class_weights, vf)
+            probs = torch.softmax(flat, dim=-1)
+        else:
+            ce = weighted_ce_probs(flat, labels, class_weights, vf)
+            probs = flat
+        loss = cfg.ce_weight * ce
         lv_valid = (vf > 0) & (labels != cfg.lovasz_ignore)
-        loss = loss + cfg.lovasz_weight * lovasz_softmax(flat, labels,
+        loss = loss + cfg.lovasz_weight * lovasz_softmax(probs, labels,
                                                          lv_valid)
         tot = tot + loss
     return tot / len(pred_occ)

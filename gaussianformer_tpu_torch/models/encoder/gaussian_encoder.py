@@ -2,7 +2,9 @@
 (gaussianformer_tpu/models/encoder/gaussian_encoder.py): each entry is one
 of identity, add, norm, ffn, deformable, spconv, refine; after every
 refine but the last the anchor is re-embedded. ``layers[i]`` holds the
-module of entry i (reference names)."""
+module of entry i (reference names). The GaussianFormer-2 order wraps each
+op in identity / add; the v1 order has neither (its FFN adds its own
+input) and refines with ``refine_version`` 1."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -11,17 +13,22 @@ from torch import nn
 
 from .modules import (AsymmetricFFN, DeformableFeatureAggregation,
                       SparseConv3DModule, SparseGaussian3DEncoder,
+                      SparseGaussian3DRefinementModule,
                       SparseGaussian3DRefinementModuleV2)
 
 
 class GaussianOccEncoder(nn.Module):
     def __init__(self, operation_order: Sequence[str], embed_dims: int = 128,
                  semantic_dim: int = 17, ffn_cfg=None, deformable_cfg=None,
-                 refine_cfg=None, spconv_cfg=None):
+                 refine_cfg=None, spconv_cfg=None, include_opa: bool = True,
+                 refine_version: int = 2):
         super().__init__()
         self.operation_order = tuple(operation_order)
-        self.anchor_encoder = SparseGaussian3DEncoder(embed_dims,
-                                                      semantic_dim)
+        self.anchor_encoder = SparseGaussian3DEncoder(
+            embed_dims, semantic_dim, include_opa)
+        refine_cls = (SparseGaussian3DRefinementModuleV2
+                      if refine_version == 2
+                      else SparseGaussian3DRefinementModule)
         builders = {
             "identity": nn.Identity, "add": nn.Identity,
             "norm": lambda: nn.LayerNorm(embed_dims),
@@ -29,8 +36,7 @@ class GaussianOccEncoder(nn.Module):
             "deformable": lambda: DeformableFeatureAggregation(
                 **deformable_cfg),
             "spconv": lambda: SparseConv3DModule(**spconv_cfg),
-            "refine": lambda: SparseGaussian3DRefinementModuleV2(
-                **refine_cfg),
+            "refine": lambda: refine_cls(**refine_cfg),
         }
         self.layers = nn.ModuleList(builders[op]()
                                     for op in self.operation_order)

@@ -1,8 +1,8 @@
 """Encoder building blocks (gaussianformer_tpu/models/encoder/modules.py):
 anchor embedding, FFN, deformable multi-camera aggregation, sparse-conv
-self-encoding, v2 refinement. Module names follow the reference.
+self-encoding, v1 and v2 refinement. Module names follow the reference.
 
-Anchor layout: [xyz(3), scale(3), rot quat(4), opacity(1), semantics(C)].
+Anchor layout: [xyz(3), scale(3), rot quat(4), opacity(0|1), semantics(C)].
 """
 from __future__ import annotations
 
@@ -25,49 +25,69 @@ class GaussianPrediction(NamedTuple):
     means: torch.Tensor       # [B, P, 3]
     scales: torch.Tensor      # [B, P, 3]
     rotations: torch.Tensor   # [B, P, 4]
-    opacities: torch.Tensor   # [B, P, 1]
+    opacities: torch.Tensor   # [B, P, 0|1]
     semantics: torch.Tensor   # [B, P, C_sem]
 
 
 class SparseGaussian3DEncoder(nn.Module):
     """Anchor -> embedding: per-component MLPs summed, then projected."""
 
-    def __init__(self, embed_dims: int = 128, semantic_dim: int = 17):
+    def __init__(self, embed_dims: int = 128, semantic_dim: int = 17,
+                 include_opa: bool = True):
         super().__init__()
         self.semantic_dim = semantic_dim
+        self.include_opa = include_opa
         self.xyz_fc = linear_relu_ln(embed_dims, 1, 2, 3)
         self.scale_fc = linear_relu_ln(embed_dims, 1, 2, 3)
         self.rot_fc = linear_relu_ln(embed_dims, 1, 2, 4)
-        self.opacity_fc = linear_relu_ln(embed_dims, 1, 2, 1)
+        if include_opa:
+            self.opacity_fc = linear_relu_ln(embed_dims, 1, 2, 1)
         self.semantics_fc = linear_relu_ln(embed_dims, 1, 2, semantic_dim)
         self.output_fc = linear_relu_ln(embed_dims, 1, 2)
 
     def forward(self, anchor):
         out = (self.xyz_fc(anchor[..., 0:3]) + self.scale_fc(anchor[..., 3:6])
-               + self.rot_fc(anchor[..., 6:10])
-               + self.opacity_fc(anchor[..., 10:11])
-               + self.semantics_fc(anchor[..., 11:11 + self.semantic_dim]))
+               + self.rot_fc(anchor[..., 6:10]))
+        start = 10
+        if self.include_opa:
+            out = out + self.opacity_fc(anchor[..., 10:11])
+            start = 11
+        out = out + self.semantics_fc(
+            anchor[..., start:start + self.semantic_dim])
         return self.output_fc(out)
 
 
 class AsymmetricFFN(nn.Module):
-    """Linear -> ReLU -> Linear without identity (reference ffn_module.py
-    names: ``layers.0.0`` and ``layers.1``), with ``ffn_drop`` dropout
-    after the ReLU and after the second Linear in training."""
+    """Linear -> ReLU -> Linear (reference ffn_module.py names:
+    ``layers.0.0`` and ``layers.1``), with ``ffn_drop`` dropout after the
+    ReLU and after the second Linear in training. With ``add_identity``
+    the input is added to the result, through ``identity_fc`` when its
+    width ``in_channels`` is not ``embed_dims`` (the v1 models, whose
+    deformable output is concatenated to the features)."""
 
     def __init__(self, embed_dims: int = 128,
-                 feedforward_channels: int = 512, ffn_drop: float = 0.0):
+                 feedforward_channels: int = 512, ffn_drop: float = 0.0,
+                 add_identity: bool = False,
+                 in_channels: Optional[int] = None):
         super().__init__()
         self.ffn_drop = ffn_drop
+        self.add_identity = add_identity
+        in_channels = in_channels or embed_dims
         self.layers = nn.Sequential(
-            nn.Sequential(nn.Linear(embed_dims, feedforward_channels),
+            nn.Sequential(nn.Linear(in_channels, feedforward_channels),
                           nn.ReLU()),
             nn.Linear(feedforward_channels, embed_dims))
+        self.identity_fc = (nn.Linear(in_channels, embed_dims)
+                            if add_identity and in_channels != embed_dims
+                            else nn.Identity())
 
     def forward(self, x, training: bool = False, generator=None):
         p = self.ffn_drop if training else 0.0
         h = dropout(self.layers[0](x), p, generator)
-        return dropout(self.layers[1](h), p, generator)
+        out = dropout(self.layers[1](h), p, generator)
+        if not self.add_identity:
+            return out
+        return self.identity_fc(x) + out
 
 
 class SparseGaussian3DKeyPointsGenerator(nn.Module):
@@ -123,10 +143,11 @@ def project_points(key_points, projection_mat, image_wh):
 
 class DeformableFeatureAggregation(nn.Module):
     """Deformable multi-camera multi-level cross attention (reference
-    deformable_module.py), residual mode "none". In training, attention
-    dropout as the JAX package does it: a keep mask ``uniform > attn_drop``
-    joins the visibility mask before the masked softmax, with no rescale
-    (modules.py:443-457)."""
+    deformable_module.py); ``residual_mode`` is "none" or "cat" (the
+    input features concatenated after the output, the v1 models). In
+    training, attention dropout as the JAX package does it: a keep mask
+    ``uniform > attn_drop`` joins the visibility mask before the masked
+    softmax, with no rescale (modules.py:443-457)."""
 
     def __init__(self, embed_dims: int = 128, num_groups: int = 4,
                  num_levels: int = 4, num_cams: int = 6,
@@ -134,8 +155,12 @@ class DeformableFeatureAggregation(nn.Module):
                  learnable_fixed_scale: float = 6.0,
                  fix_scale=((0.0, 0.0, 0.0),),
                  pc_range=(-50.0, -50.0, -5.0, 50.0, 50.0, 3.0),
-                 scale_range=(0.01, 3.2), attn_drop: float = 0.0):
+                 scale_range=(0.01, 3.2), attn_drop: float = 0.0,
+                 residual_mode: str = "none"):
         super().__init__()
+        if residual_mode not in ("none", "cat"):
+            raise ValueError(f"residual_mode {residual_mode!r}")
+        self.residual_mode = residual_mode
         self.attn_drop = attn_drop
         self.num_groups = num_groups
         self.num_levels = num_levels
@@ -196,7 +221,10 @@ class DeformableFeatureAggregation(nn.Module):
                                        image_wh, training, generator)
         features = deformable_aggregation(feature_maps, loc, w,
                                           self.kps_generator.num_pts)
-        return self.output_proj(features)
+        output = self.output_proj(features)
+        if self.residual_mode == "cat":
+            return torch.cat([output, instance_feature], dim=-1)
+        return output
 
 
 class SubMConv3d(nn.Module):
@@ -204,13 +232,17 @@ class SubMConv3d(nn.Module):
     the gather and matmul run in ``dtype``, the output is fp32."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 5, dtype=torch.float32):
+                 kernel_size: int = 5, dtype=torch.float32,
+                 bias: bool = True):
         super().__init__()
         k = kernel_size
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_channels, k, k, k,
                                                in_channels))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_channels))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x, nb_anchor):
         return submanifold_conv3d(x, nb_anchor, self.weight, self.bias,
@@ -218,26 +250,36 @@ class SubMConv3d(nn.Module):
 
 
 class SparseConv3DModule(nn.Module):
-    """Three submanifold conv + LN + ReLU layers over the voxelised anchors,
-    then an output projection (reference spconv3d_module.py). The convs
-    compute in ``dtype`` (bf16 for the flagship, as the JAX package does
-    on accelerators)."""
+    """Submanifold convs over the voxelised anchors (reference
+    spconv3d_module.py): three conv + LN + ReLU layers
+    (``use_multi_layer``, GaussianFormer-2) or one conv without bias (the
+    v1 models), then an output projection where ``use_out_proj``. The
+    convs compute in ``dtype`` (bf16 at full width, as the JAX package
+    does on accelerators)."""
 
     def __init__(self, in_channels: int = 128, embed_channels: int = 128,
                  pc_range=(-50.0, -50.0, -5.0, 50.0, 50.0, 3.0),
                  grid_size=(1.0, 1.0, 1.0), kernel_size: int = 5,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_out_proj: bool = True,
+                 use_multi_layer: bool = True):
         super().__init__()
         self.pc_range = tuple(pc_range)
         self.grid_size = tuple(grid_size)
         self.kernel_size = kernel_size
-        layers = []
-        for i in range(3):
-            layers += [SubMConv3d(in_channels if i == 0 else embed_channels,
-                                  embed_channels, kernel_size, dtype),
-                       nn.LayerNorm(embed_channels), nn.ReLU()]
-        self.layer = nn.Sequential(*layers)
-        self.output_proj = nn.Linear(embed_channels, embed_channels)
+        self.use_multi_layer = use_multi_layer
+        if use_multi_layer:
+            layers = []
+            for i in range(3):
+                layers += [SubMConv3d(
+                    in_channels if i == 0 else embed_channels,
+                    embed_channels, kernel_size, dtype),
+                    nn.LayerNorm(embed_channels), nn.ReLU()]
+            self.layer = nn.Sequential(*layers)
+        else:
+            self.layer = SubMConv3d(in_channels, embed_channels,
+                                    kernel_size, dtype, bias=False)
+        self.output_proj = (nn.Linear(embed_channels, embed_channels)
+                            if use_out_proj else nn.Identity())
 
     def forward(self, instance_feature, anchor):
         xyz = cartesian(anchor[..., :3], self.pc_range)
@@ -247,11 +289,80 @@ class SparseConv3DModule(nn.Module):
         for bi in range(instance_feature.shape[0]):
             nb = neighbor_anchors(coords[bi], grid_shape, self.kernel_size)
             x = instance_feature[bi]
-            for i in range(0, len(self.layer), 3):
-                x = self.layer[i](x, nb)
-                x = torch.relu(self.layer[i + 1](x))
+            if self.use_multi_layer:
+                for i in range(0, len(self.layer), 3):
+                    x = self.layer[i](x, nb)
+                    x = torch.relu(self.layer[i + 1](x))
+            else:
+                x = self.layer(x, nb)
             outs.append(x)
         return self.output_proj(torch.stack(outs))
+
+
+def apply_semantics_activation(semantics, activation: str):
+    if activation == "softplus":
+        return torch.nn.functional.softplus(semantics)
+    if activation != "identity":
+        raise ValueError(f"semantics_activation {activation!r}")
+    return semantics
+
+
+class SparseGaussian3DRefinementModule(nn.Module):
+    """v1 refinement (reference refine_module.py): the head's output is
+    the new anchor. With ``restrict_xyz`` its xyz part is a bounded step,
+    (2 sigmoid - 1) * 4 unit / range in the anchor's logit space; the
+    components listed in ``refine_manual`` are added to the old anchor's,
+    the others replace them. The anchor returned is that output with its
+    quaternion normalised, not a re-encoding of the decoded Gaussian."""
+
+    def __init__(self, embed_dims: int = 128,
+                 pc_range=(-50.0, -50.0, -5.0, 50.0, 50.0, 3.0),
+                 scale_range=(0.08, 0.64), unit_xyz=(4.0, 4.0, 1.0),
+                 semantic_dim: int = 17, include_opa: bool = True,
+                 semantics_activation: str = "identity",
+                 restrict_xyz: bool = False, refine_manual=None):
+        super().__init__()
+        self.pc_range = tuple(pc_range)
+        self.scale_range = tuple(scale_range)
+        self.semantic_dim = semantic_dim
+        self.include_opa = include_opa
+        self.semantics_activation = semantics_activation
+        self.restrict_xyz = restrict_xyz
+        self.refine_manual = tuple(refine_manual or ())
+        self.register_buffer("unit_prob", torch.tensor(
+            [unit_xyz[i] / (pc_range[i + 3] - pc_range[i]) * 4.0
+             for i in range(3)], dtype=torch.float32), persistent=False)
+        out_dim = 10 + int(include_opa) + semantic_dim
+        self.layers = nn.Sequential(
+            *linear_relu_ln(embed_dims, 2, 2),
+            nn.Linear(embed_dims, out_dim), Scale(out_dim))
+
+    def forward(self, instance_feature, anchor, anchor_embed):
+        output = self.layers(instance_feature + anchor_embed)
+        if self.restrict_xyz:
+            delta = (2.0 * safe_sigmoid(output[..., :3]) - 1.0) \
+                * self.unit_prob
+            output = torch.cat([delta, output[..., 3:]], -1)
+        k = len(self.refine_manual)
+        if k:
+            output = torch.cat([output[..., :k] + anchor[..., :k],
+                                output[..., k:]], -1)
+        xyz_a = output[..., :3]
+        scale_a = output[..., 3:6]
+        rot = output[..., 6:10]
+        rot = rot / rot.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        output = torch.cat([xyz_a, scale_a, rot, output[..., 10:]], -1)
+        sem_start = 10 + int(self.include_opa)
+        lo, hi = self.scale_range
+        gaussian = GaussianPrediction(
+            means=cartesian(xyz_a, self.pc_range),
+            scales=lo + (hi - lo) * safe_sigmoid(scale_a),
+            rotations=rot,
+            opacities=safe_sigmoid(output[..., 10:sem_start]),
+            semantics=apply_semantics_activation(
+                output[..., sem_start:sem_start + self.semantic_dim],
+                self.semantics_activation))
+        return output, gaussian
 
 
 class SparseGaussian3DRefinementModuleV2(nn.Module):

@@ -1,8 +1,19 @@
-"""Probabilistic Gaussian occupancy head
+"""Gaussian occupancy head
 (gaussianformer_tpu/models/head/gaussian_head.py): the supervised refine
-layers' Gaussians are splatted to the voxel grid (kernels K4 / K7) and
-composed with combine_geosem; ``final_occ`` comes from the kernel's label
-epilogue of the last splatted layer."""
+layers' Gaussians are splatted to the voxel grid (kernels K4 / K7);
+``final_occ`` comes from the kernel's label epilogue of the last splatted
+layer.
+
+- prob (``use_localaggprob``, GaussianFormer-2): softmax semantics with a
+  zero empty channel, the GMM splat, ``pred_occ`` composed with
+  combine_geosem, plus ``bin_logits`` and ``density``.
+- additive (the v1 models): the semantics as the refinement left them, the
+  additive splat, ``pred_occ`` its raw sums. ``with_empty`` appends one
+  large fixed Gaussian that carries the learnable ``empty_scalar`` on the
+  empty class; a prediction without opacities is splatted with ones.
+
+The threshold label mode (``combine_geosem=False`` with the prob splat) is
+not ported."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -12,18 +23,7 @@ from torch import nn
 
 from ...kernels.splat import combine_geosem
 from ...ops.covariance import build_covariance_inverse6
-from ...ops.splat import SplatGridSpec, splat_prob
-
-
-def prepare_gaussian_args(gaussians):
-    """(means, opacities [B, P], semantics softmax + empty channel,
-    scales, cov_inv6)."""
-    sem = torch.softmax(gaussians.semantics, dim=-1)
-    sem = torch.cat([sem, torch.zeros_like(sem[..., :1])], dim=-1)
-    cov_inv6 = build_covariance_inverse6(gaussians.scales,
-                                         gaussians.rotations)
-    return (gaussians.means, gaussians.opacities[..., 0], sem,
-            gaussians.scales, cov_inv6)
+from ...ops.splat import SplatGridSpec, splat_additive, splat_prob
 
 
 def loss_layers(apply_loss_type: str, num_decoder: int, training: bool,
@@ -51,10 +51,61 @@ def loss_layers(apply_loss_type: str, num_decoder: int, training: bool,
 
 class GaussianHead(nn.Module):
     def __init__(self, grid: SplatGridSpec = SplatGridSpec(),
-                 apply_loss_type: str = "random_1"):
+                 apply_loss_type: str = "random_1", num_classes: int = 18,
+                 empty_label: int = 17, with_empty: bool = False,
+                 empty_mean=(0.0, 0.0, -1.0),
+                 empty_scale=(100.0, 100.0, 8.0),
+                 use_localaggprob: bool = True,
+                 combine_geosem: bool = True):
         super().__init__()
+        if use_localaggprob and not combine_geosem:
+            raise NotImplementedError("the threshold label mode of the "
+                                      "prob head")
         self.grid = grid
         self.apply_loss_type = apply_loss_type
+        self.with_empty = with_empty
+        self.use_localaggprob = use_localaggprob
+        if with_empty:
+            self.empty_scalar = nn.Parameter(torch.full((1,), 10.0))
+            f32 = dict(dtype=torch.float32)
+            self.register_buffer("empty_mean", torch.tensor(
+                empty_mean, **f32), persistent=False)
+            self.register_buffer("empty_scale", torch.tensor(
+                empty_scale, **f32), persistent=False)
+            self.register_buffer("empty_rot", torch.tensor(
+                [1.0, 0.0, 0.0, 0.0], **f32), persistent=False)
+            onehot = torch.zeros(num_classes, **f32)
+            onehot[empty_label] = 1.0
+            self.register_buffer("empty_onehot", onehot, persistent=False)
+
+    def prepare_gaussian_args(self, gaussians):
+        """(means, opacities [B, P], semantics [B, P, C], scales,
+        cov_inv6) as the splat takes them
+        (gaussian_head.py::prepare_gaussian_args)."""
+        means, scales = gaussians.means, gaussians.scales
+        rotations, sem = gaussians.rotations, gaussians.semantics
+        opa = gaussians.opacities
+        if opa.shape[-1] == 0:
+            opa = torch.ones_like(sem[..., :1])
+        if self.with_empty:
+            b = means.shape[0]
+            # the learnt Gaussians get a zero on the empty channel; the
+            # empty Gaussian carries empty_scalar there and zeros elsewhere
+            sem = torch.cat([sem, torch.zeros_like(sem[..., :1])], dim=-1)
+            e_sem = self.empty_onehot * self.empty_scalar
+
+            def one(t):
+                return t.expand(b, 1, -1)
+            means = torch.cat([means, one(self.empty_mean)], dim=1)
+            scales = torch.cat([scales, one(self.empty_scale)], dim=1)
+            rotations = torch.cat([rotations, one(self.empty_rot)], dim=1)
+            sem = torch.cat([sem, one(e_sem)], dim=1)
+            opa = torch.cat([opa, torch.ones_like(opa[:, :1])], dim=1)
+        elif self.use_localaggprob:
+            sem = torch.softmax(sem, dim=-1)
+            sem = torch.cat([sem, torch.zeros_like(sem[..., :1])], dim=-1)
+        cov_inv6 = build_covariance_inverse6(scales, rotations)
+        return means, opa[..., 0], sem, scales, cov_inv6
 
     def forward(self, representation, occ_xyz, occ_label=None,
                 occ_cam_mask=None, training: bool = False,
@@ -68,13 +119,16 @@ class GaussianHead(nn.Module):
                              training, apply_loss_layers)
         pred, bin_logits, density = [], [], []
         for idx in layers:
-            means, opa, sem, scales, cov_inv6 = prepare_gaussian_args(
-                representation[idx])
-            logits, bins, dens, labels = splat_prob(
-                points, means, opa, sem, scales, cov_inv6, self.grid)
-            pred.append(combine_geosem(logits, bins))
-            bin_logits.append(bins)
-            density.append(dens)
+            args = self.prepare_gaussian_args(representation[idx])
+            if self.use_localaggprob:
+                logits, bins, dens, labels = splat_prob(points, *args,
+                                                        self.grid)
+                pred.append(combine_geosem(logits, bins))
+                bin_logits.append(bins)
+                density.append(dens)
+            else:
+                logits, labels = splat_additive(points, *args, self.grid)
+                pred.append(logits)
         out = {
             "pred_occ": pred,
             "bin_logits": bin_logits,

@@ -1,6 +1,8 @@
 """Top-level segmentor (gaussianformer_tpu/models/segmentor.py): images ->
-ResNet+DCN -> FPN -> GaussianLifterV2 -> GaussianOccEncoder ->
-GaussianHead.
+ResNet+DCN -> FPN -> lifter -> GaussianOccEncoder -> GaussianHead. The
+lifter is GaussianLifterV2 (a second tower, depth sampling and FPS;
+GaussianFormer-2) or the v1 models' GaussianLifter, a learnable anchor
+bank, with which there are no ``pixel_logits``.
 
 ``training=True`` is the train step's forward: the lifter's ray ground
 truth, dropout, the head's supervised-layer choice. Gradients follow
@@ -18,6 +20,7 @@ from ..device import resolve_device
 from .backbone.resnet import ResNet
 from .encoder.gaussian_encoder import GaussianOccEncoder
 from .head.gaussian_head import GaussianHead
+from .lifter.gaussian_lifter import GaussianLifter
 from .lifter.gaussian_lifter_v2 import GaussianLifterV2
 from .neck.fpn import FPN
 
@@ -31,39 +34,62 @@ class BEVSegmentor(nn.Module):
                                    stage_with_dcn=cfg.stage_with_dcn,
                                    dtype=dt)
         self.img_neck = FPN(self.img_backbone.out_channels, cfg.embed_dims)
-        self.lifter = GaussianLifterV2(
-            num_anchor=cfg.num_anchor, embed_dims=cfg.embed_dims,
-            semantic_dim=cfg.semantic_dim,
-            num_samples=cfg.num_depth_samples, pc_range=cfg.pc_range,
-            random_samples=cfg.random_samples,
-            initializer_depth=cfg.depth,
-            initializer_dcn=cfg.stage_with_dcn,
-            initializer_base_channels=cfg.base_channels,
-            initializer_out_channels=cfg.initializer_out_channels,
-            voxel_size=cfg.grid.grid_size, occ_resolution=cfg.occ_resolution,
-            empty_label=cfg.empty_label, dtype=dt)
+        self.lifter_version = cfg.version
+        if cfg.version == 1:
+            self.lifter = GaussianLifter(
+                num_anchor=cfg.num_anchor, embed_dims=cfg.embed_dims,
+                semantic_dim=cfg.semantic_dim, include_opa=cfg.include_opa)
+        else:
+            self.lifter = GaussianLifterV2(
+                num_anchor=cfg.num_anchor, embed_dims=cfg.embed_dims,
+                semantic_dim=cfg.semantic_dim,
+                num_samples=cfg.num_depth_samples, pc_range=cfg.pc_range,
+                random_samples=cfg.random_samples,
+                initializer_depth=cfg.depth,
+                initializer_dcn=cfg.stage_with_dcn,
+                initializer_base_channels=cfg.base_channels,
+                initializer_out_channels=cfg.initializer_out_channels,
+                voxel_size=cfg.grid.grid_size,
+                occ_resolution=cfg.occ_resolution,
+                empty_label=cfg.empty_label, dtype=dt)
         kps = dict(num_learnable_pts=cfg.num_learnable_pts,
                    learnable_fixed_scale=cfg.learnable_fixed_scale,
                    fix_scale=cfg.fix_scale, pc_range=cfg.pc_range,
                    scale_range=cfg.scale_range)
+        refine_cfg = dict(embed_dims=cfg.embed_dims, pc_range=cfg.pc_range,
+                          scale_range=cfg.scale_range, unit_xyz=cfg.unit_xyz,
+                          semantic_dim=cfg.semantic_dim)
+        if cfg.version == 1:
+            refine_cfg.update(
+                include_opa=cfg.include_opa,
+                semantics_activation=cfg.semantics_activation,
+                restrict_xyz=cfg.restrict_xyz,
+                refine_manual=cfg.refine_manual)
         self.encoder = GaussianOccEncoder(
             cfg.operation_order, cfg.embed_dims, cfg.semantic_dim,
             ffn_cfg=dict(embed_dims=cfg.embed_dims,
                          feedforward_channels=cfg.embed_dims * 4,
-                         ffn_drop=cfg.ffn_drop),
-            deformable_cfg=dict(embed_dims=cfg.embed_dims,
-                                num_cams=cfg.num_cams,
-                                attn_drop=cfg.attn_drop, **kps),
-            refine_cfg=dict(embed_dims=cfg.embed_dims,
-                            pc_range=cfg.pc_range,
-                            scale_range=cfg.scale_range,
-                            unit_xyz=cfg.unit_xyz,
-                            semantic_dim=cfg.semantic_dim),
+                         ffn_drop=cfg.ffn_drop,
+                         add_identity=cfg.ffn_add_identity,
+                         in_channels=cfg.ffn_in_channels),
+            deformable_cfg=dict(
+                embed_dims=cfg.embed_dims, num_cams=cfg.num_cams,
+                attn_drop=cfg.attn_drop,
+                residual_mode=cfg.deformable_residual_mode, **kps),
+            refine_cfg=refine_cfg,
             spconv_cfg=dict(in_channels=cfg.embed_dims,
                             embed_channels=cfg.embed_dims,
                             pc_range=cfg.pc_range,
-                            grid_size=cfg.spconv_grid_size, dtype=dt))
-        self.head = GaussianHead(cfg.grid, cfg.apply_loss_type)
+                            grid_size=cfg.spconv_grid_size, dtype=dt,
+                            use_out_proj=cfg.spconv_use_out_proj,
+                            use_multi_layer=cfg.spconv_use_multi_layer),
+            include_opa=cfg.include_opa, refine_version=cfg.version)
+        self.head = GaussianHead(
+            cfg.grid, cfg.apply_loss_type, num_classes=cfg.num_classes,
+            empty_label=cfg.empty_label, with_empty=cfg.with_empty,
+            empty_mean=cfg.empty_mean, empty_scale=cfg.empty_scale,
+            use_localaggprob=cfg.use_localaggprob,
+            combine_geosem=cfg.combine_geosem)
 
     def forward(self, imgs, projection_mat, image_wh, occ_xyz=None,
                 occ_label=None, occ_cam_mask=None, *,
@@ -84,9 +110,13 @@ class BEVSegmentor(nn.Module):
         ms_feats = [f.permute(0, 2, 3, 1).reshape(
             b, n, f.shape[2], f.shape[3], f.shape[1]).contiguous()
             for f in feats]
-        lifter_out = self.lifter(imgs, projection_mat, image_wh, occ_label,
-                                 occ_cam_mask, generator=generator,
-                                 draws=lifter_draws, compute_gt=training)
+        if self.lifter_version == 1:
+            lifter_out = self.lifter(b)
+        else:
+            lifter_out = self.lifter(imgs, projection_mat, image_wh,
+                                     occ_label, occ_cam_mask,
+                                     generator=generator, draws=lifter_draws,
+                                     compute_gt=training)
         enc_out = self.encoder(lifter_out["representation"],
                                lifter_out["rep_features"], ms_feats,
                                projection_mat, image_wh, training, generator)
@@ -96,8 +126,8 @@ class BEVSegmentor(nn.Module):
                              occ_cam_mask, training, apply_loss_layers)
         if occ_only:
             return {"final_occ": head_out["final_occ"]}
-        head_out["pixel_logits"] = lifter_out["pixel_logits"]
-        head_out["pixel_gt"] = lifter_out["pixel_gt"]
+        head_out["pixel_logits"] = lifter_out.get("pixel_logits")
+        head_out["pixel_gt"] = lifter_out.get("pixel_gt")
         return head_out
 
 
@@ -105,10 +135,20 @@ def init_random_(model: nn.Module, generator: torch.Generator):
     """Seeded random weights: fan-in scaled normals for conv / linear
     weights (small ones for the DCN offset convs, so offsets are fractional
     and the bilinear paths run), zero biases, unit LayerNorm / BN scales,
-    random BN statistics, N(0, 1) anchors."""
-    for name, t in list(model.named_parameters()) + list(
-            model.named_buffers()):
+    random BN statistics, N(0, 1) anchors; the v1 lifter's bank and the
+    head's ``empty_scalar`` get the reference's own init."""
+    own_init = ()
+    if isinstance(getattr(model, "lifter", None), GaussianLifter):
+        model.lifter.reset_parameters(generator)
+        own_init = ("lifter.", "head.empty_scalar")
+    # of the buffers only the BN statistics are weights: the others
+    # (fix_scale, unit_xyz, the empty Gaussian) are the config's constants
+    stats = [(n, t) for n, t in model.named_buffers()
+             if n.rsplit(".", 1)[-1] in ("running_mean", "running_var")]
+    for name, t in list(model.named_parameters()) + stats:
         leaf = name.rsplit(".", 1)[-1]
+        if name.startswith(own_init):
+            continue
         if leaf == "running_mean":
             t.copy_(torch.randn(t.shape, generator=generator) * 0.1)
         elif leaf == "running_var":

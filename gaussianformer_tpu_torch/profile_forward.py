@@ -1,12 +1,13 @@
-"""Where the time of one prob_gs6400 frame, or one train step, goes on
-the GPU.
+"""Where the time of one frame, or one train step, of a config goes on the
+GPU.
 
-    python -m gaussianformer_tpu_torch.profile_forward [--frames 3] [--train]
+    python -m gaussianformer_tpu_torch.profile_forward \
+        [--config prob_gs6400] [--frames 3] [--train]
 
-Runs the full-width forward under inference mode (random weights from
-seed 0, the synthetic flagship batch) or, with ``--train``, the full
-train step (forward with dropout, losses, backward, clipping, AdamW), and
-prints:
+Runs the config's full-width forward under inference mode (random weights
+from seed 0, the synthetic batch at the config's input size) or, with
+``--train``, the full train step (forward with dropout, losses, backward,
+clipping, AdamW), and prints:
 
 - per-stage device time from CUDA events recorded around each stage
   module's forward (towers, FPN, lifter, encoder ops by kind, head),
@@ -26,7 +27,7 @@ import subprocess
 
 import torch
 
-from .configs import get_config
+from .configs import get_config, list_configs
 from .data.synthetic import synthetic_batch
 from .models.segmentor import build_segmentor
 from .train.optim import build_optimizer
@@ -83,6 +84,8 @@ class StageTimer:
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="prob_gs6400",
+                    choices=list_configs())
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the forward")
@@ -93,9 +96,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"# card: {card}")
+    print(f"# card: {card}; config: {ns.config}")
 
-    cfg = get_config("prob_gs6400")
+    cfg = get_config(ns.config)
     model = build_segmentor(cfg, device="cuda", seed=0)
     g = cfg.grid
     batch = synthetic_batch(1, cfg.input_size, (g.H, g.W, g.D), seed=0,
@@ -139,8 +142,10 @@ def main():
     timer.attach(model.img_backbone, "main tower (ResNet-101 + DCN)")
     timer.attach(model.img_neck, "FPN")
     timer.attach(model.lifter, "lifter (total)")
-    timer.attach(model.lifter.initialize_backbone,
-                 "lifter: initializer tower (ResNet-101 + DCN + SECONDFPN)")
+    if cfg.version == 2:
+        timer.attach(model.lifter.initialize_backbone,
+                     "lifter: initializer tower (ResNet-101 + DCN + "
+                     "SECONDFPN)")
     timer.attach(model.encoder, "encoder (total)")
     for op, layer in zip(model.encoder.operation_order,
                          model.encoder.layers):
@@ -158,9 +163,8 @@ def main():
     what = "train step" if ns.train else "frame"
     print(f"# {what}: {frame_ms:.3f} ms (CUDA events, mean of {ns.frames}, "
           f"stage hooks on)")
-    if ns.train:
-        print(f"# peak device memory: "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"# peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     totals = dict(timer.totals(ns.frames))
     totals.update({k: v / ns.frames for k, v in phases.items()})
     for name, ms in totals.items():
@@ -185,9 +189,14 @@ def main():
           f"{busy_ms:.3f} ms; idle share {1 - busy_ms / traced_ms:.3f} of "
           f"the profiled {what}, {1 - busy_ms / frame_ms:.3f} against the "
           f"unprofiled mean")
-    for e in sorted(device_kernels(events), key=_dev_us, reverse=True)[:30]:
-        print(f"# kernel {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
-              f"{e.key[:110]}")
+    ranked = sorted(device_kernels(events), key=_dev_us, reverse=True)
+    # the 30 kernels with the most device time, and the port's own kernels
+    # wherever they rank
+    own = ("dcn_", "fps_", "deformable_", "splat_")
+    for i, e in enumerate(ranked):
+        if i < 30 or any(k in e.key for k in own):
+            print(f"# kernel {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+                  f"{e.key[:110]}")
 
 
 if __name__ == "__main__":

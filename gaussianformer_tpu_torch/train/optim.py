@@ -19,8 +19,9 @@ from torch import nn
 # frozen_stages=1 (reference backbone config): stem + stage 1
 FROZEN_BACKBONE = ("img_backbone.conv1", "img_backbone.bn1",
                    "img_backbone.layer1")
-# freeze_lifter keeps random_anchors trainable (reference
-# bev_segmentor.py:40-46)
+# freeze_lifter (the prob configs) keeps random_anchors trainable
+# (reference bev_segmentor.py:40-46); the v1 configs do not set it, so
+# their lifter's anchor bank and instance features train
 FROZEN_LIFTER = ("lifter.initialize_backbone", "lifter.projection",
                  "lifter.anchor", "lifter.instance_feature")
 BACKBONE = "img_backbone"

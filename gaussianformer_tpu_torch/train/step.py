@@ -15,12 +15,12 @@ from ..losses.occupancy import OccupancyLossCfg, occupancy_loss
 
 
 def build_loss(cfg) -> MultiLoss:
-    """OccupancyLoss (CE on probabilities + Lovász) and, where the config
-    asks for it, PixelDistributionLoss."""
+    """OccupancyLoss (CE + Lovász; on probabilities, or on logits with
+    ``lovasz_use_softmax``) and, where the config asks for it,
+    PixelDistributionLoss."""
     occ_cfg = OccupancyLossCfg(ce_weight=cfg.ce_weight,
-                               lovasz_weight=cfg.lovasz_weight)
-    if cfg.lovasz_use_softmax:
-        raise NotImplementedError("lovasz_use_softmax (v1 configs)")
+                               lovasz_weight=cfg.lovasz_weight,
+                               lovasz_use_softmax=cfg.lovasz_use_softmax)
     terms = [LossTerm("OccupancyLoss", 1.0,
                       functools.partial(occupancy_loss, occ_cfg),
                       ("pred_occ", "sampled_label", "occ_mask"))]

@@ -15,6 +15,11 @@ uses the reference (mmseg / mmdet / mmdet3d) module names, so its
   - BN batch_stats   mean / var          -> running_mean / running_var
   - sparse conv      [k, k, k, I, O]     -> spconv weight [O, k, k, k, I]
 
+Both model families convert: GaussianFormer-2 (lifter v2 with its second
+tower, three-layer spconv) and the v1 models (``lifter.anchor`` /
+``lifter.instance_feature`` alone, the FFN's ``identity_fc``, the
+single bias-free spconv ``layer.weight``, ``head.empty_scalar``).
+
 The DCN offset conv keeps its channel order: both packages, like mmcv,
 emit 18 offsets as (dy, dx) per tap followed by 9 mask logits.
 """
@@ -127,6 +132,8 @@ def _module(path: str, n_fpn_levels: int) -> Tuple[str, str]:
         if op == "ffn" and rest in ("fc1", "fc2"):
             return pre + (".layers.0.0" if rest == "fc1" else ".layers.1"), \
                 "dense"
+        if op == "ffn" and rest == "identity_fc":
+            return f"{pre}.identity_fc", "dense"
         if op == "deformable":
             if rest in ("kps_generator/learnable_fc", "weights_fc",
                         "output_proj"):
@@ -164,15 +171,22 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _leaf_param(path: str, val) -> Tuple[str, np.ndarray] | None:
-    """Leaves that sit directly on a module with no child module."""
+def _leaf_param(path: str, val, multi_layer_spconv
+                ) -> Tuple[str, np.ndarray] | None:
+    """Leaves that sit directly on a module with no child module.
+    ``multi_layer_spconv``: the op indices whose spconv is the three-layer
+    Sequential (``layer.0/3/6``); the others hold one conv, ``layer``."""
     m = re.fullmatch(r"lifter/(anchor|random_anchors|instance_feature)",
                      path)
     if m:
         return f"lifter.{m.group(1)}", val
+    if path == "head/empty_scalar":
+        return "head.empty_scalar", val
     m = re.fullmatch(r"encoder/op(\d+)_spconv/conv(\d)_(kernel|bias)", path)
     if m:
-        key = f"encoder.layers.{m.group(1)}.layer.{3 * int(m.group(2))}"
+        key = f"encoder.layers.{m.group(1)}.layer"
+        if m.group(1) in multi_layer_spconv:
+            key += f".{3 * int(m.group(2))}"
         if m.group(3) == "kernel":
             return f"{key}.weight", val.transpose(4, 0, 1, 2, 3)
         return f"{key}.bias", val
@@ -185,8 +199,10 @@ def _placements(variables: Mapping):
     flat.update(_flatten(variables.get("batch_stats", {})))
     n_fpn = len({m.group(0) for m in map(
         re.compile(r"img_neck/lateral_\d+/").match, flat) if m})
+    multi = {m.group(1) for m in map(
+        re.compile(r"encoder/op(\d+)_spconv/ln0/").match, flat) if m}
     for path, val in flat.items():
-        direct = _leaf_param(path, val)
+        direct = _leaf_param(path, val, multi)
         if direct is not None:
             yield path, direct[0], direct[1]
             continue

@@ -2,8 +2,9 @@
 card, at small shapes with the edge cases the flagship path does not
 reach: DCN offsets of several pixels (corners outside the image), masked
 and exhausted FPS, fp32 deformable features, a splat with sparse and dense
-coverage; and the backward kernels K5-K7 against their plain backward
-versions on random cotangents. Marked ``cuda``; they skip on a host
+coverage, the additive splat with the v1 head's whole-grid Gaussian; and
+the backward kernels K5-K7 against their plain backward versions on random
+cotangents. Marked ``cuda``; they skip on a host
 without a CUDA device. On the card (``--noconftest``: tests/conftest.py
 imports JAX):
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda``.
@@ -173,3 +174,74 @@ def test_splat_backward_kernel_matches_plain(gen):
         _close(gt, rf, SUM_TOL, name)
     with pytest.raises(ValueError):
         splat.splat_backward_cuda(pts.flip(0).contiguous(), *args[1:])
+
+
+def _additive_case(gen):
+    """The v1 head's shapes in small: many small boxes, one Gaussian whose
+    box is the whole grid (more than the kernel's 8192-voxel limit for a
+    single block, so it is walked in segments) and softplus-like positive
+    semantics with a zero empty channel."""
+    grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
+    p, c = sem.shape
+    scales = scales * 0.3
+    scales[-1] = torch.tensor([100.0, 100.0, 8.0], device="cuda")
+    means[-1] = torch.tensor([0.0, 0.0, -1.0], device="cuda")
+    quat = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device="cuda").expand(p, 4)
+    cov6 = build_covariance_inverse6(scales, quat)
+    sem = torch.cat([randn(gen, p, c - 1).abs(),
+                     torch.zeros(p, 1, device="cuda")], -1)
+    sem[-1] = 0.0
+    sem[-1, -1] = 10.0
+    assert grid.num_voxels > 8192
+    return grid, pts, means, opa, sem, scales, cov6
+
+
+@pytest.mark.parametrize("empty_semantics", [10.0, 0.0])
+def test_splat_additive_kernel_matches_plain(gen, empty_semantics):
+    """K4 additive: each class column of the sums within 1e-4 of its own
+    largest value; labels equal where the two largest sums differ by more
+    than their tolerances, and 0 where no Gaussian reaches the voxel. With
+    the whole-grid Gaussian's semantics at 10 it decides every label; at 0
+    the small Gaussians do, and part of the grid is unreached."""
+    grid, pts, means, opa, sem, scales, cov6 = _additive_case(gen)
+    sem[-1, -1] = empty_semantics
+    if not empty_semantics:
+        # the small Gaussians into the lower-x half: the other is unreached
+        x0 = grid.pc_min[0]
+        means[:-1, 0] = x0 + (means[:-1, 0] - x0) * 0.5
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid, "additive")
+    got = splat.splat_accumulate_cuda(pts, *tables, grid, "additive")
+    ref = splat.splat_accumulate_plain(pts, *tables, grid, "additive")
+    assert got[1] is None and ref[1] is None
+    acc, ref_acc = got[0][:, :-2], ref[0][:, :-2]
+    tol = 1e-4 * ref_acc.abs().amax(0)
+    assert ((acc - ref_acc).abs().amax(0) <= tol).all()
+    top = ref_acc.topk(2, dim=-1)
+    clear = (top.values[:, 0] - top.values[:, 1]) > tol[top.indices].sum(-1)
+    assert torch.equal(got[2][clear], ref[2][clear])
+    unreached = (ref_acc == 0).all(-1)
+    assert (got[2][unreached] == 0).all()
+    if empty_semantics:
+        assert clear.float().mean() > 0.9
+    else:
+        assert ref[2][clear].unique().numel() > 2
+        assert unreached.any()
+
+
+def test_splat_additive_backward_kernel_matches_plain(gen):
+    """K7 additive; the small boxes' rows held to their own largest value,
+    without the whole-grid Gaussian's row (summed in segments with
+    atomics), which is held on its own."""
+    grid, pts, means, opa, sem, scales, cov6 = _additive_case(gen)
+    gdata, box, _ = pack_gaussians(means, opa, sem, scales, cov6, grid,
+                                   "additive")
+    gl = randn(gen, pts.shape[0], sem.shape[1])
+    args = (pts, gdata, opa, sem, box, gl, None, grid, "additive")
+    got = splat.splat_backward_cuda(*args)
+    ref = splat.splat_backward_plain(*args)
+    for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got, ref):
+        _close(gt[:-1], rf[:-1], SUM_TOL, name + " of the small boxes")
+        _close(gt[-1], rf[-1], SUM_TOL, name + " of the whole-grid box")
+    with pytest.raises(ValueError):
+        splat.splat_backward_cuda(*args[:6], randn(gen, pts.shape[0], 3),
+                                  grid, "additive")
