@@ -29,7 +29,11 @@ Phases (each raises on failure, so the script exits nonzero):
             gradient norm, trained parameters moved, frozen ones unchanged
             to the bit;
 6. backward each backward kernel against its plain backward version on the
-            captured inputs and cotangents;
+            captured inputs and cotangents; for K5 also the share of
+            corners outside its shared-memory g_x window, each of its two
+            launches' time (CUDA events), and the stage-3 inputs once
+            more with the offsets moved by up to 6 px, so that its
+            global-atomic fallback runs at full width;
 7. small    two tiny-config train steps on the GPU against the CPU;
 8. v1       gs25600_solid at full width (25,600 anchors and the empty
             Gaussian, one tower): frames as in phase 2 (26 DCN, no FPS, 4
@@ -57,6 +61,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -91,6 +96,9 @@ SUM_TOL = 1e-3
 # segments (``csrc/splat_bwd.cu``); among the v1 configs' Gaussians only
 # the head's empty one, the last of its table, has such a box
 BIG_BOX = 8192
+# K5 once more on the stage-3 inputs with offsets moved by up to this many
+# pixels, so that its global-atomic fallback runs at full width
+DCN_PERTURB_PX = 6.0
 # the tiny train step, GPU against CPU: fp32 sums in another order through
 # the whole model and two optimizer steps
 TINY_RTOL = 1e-3
@@ -185,7 +193,10 @@ def main() -> int:
     _lib.lib()
     log(f"# build: {time.perf_counter() - t0:.1f} s")
     for line in _lib.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            log(f"#   kernel {kernel_name(entry.group(1))}")
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             log(f"#   {line.strip()}")
     log(f"# fps cluster size: {_lib.lib().gf_fps_cluster_size()}")
 
@@ -227,6 +238,12 @@ def main() -> int:
             rows.append(check_backward(key, captured(train["calls"], key),
                                        train["launches"], mods))
     del train["calls"]
+    # K5's stage-4 numbers ride on its stage-3 row
+    k5 = {r["shape"][3]: r for r in rows
+          if r["name"] == "deform_conv2d_backward"}
+    k5[256]["stage4"] = {k: k5[512][k] for k in (
+        "shape", "ms", "launch_ms", "bound_ms", "window_outside_share",
+        "max_abs_err")}
 
     # ---- 7. the tiny train step, GPU against CPU
     check_small_train("prob_gs6400_tiny", get_config, build_segmentor,
@@ -248,6 +265,24 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def kernel_name(symbol: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    symbol (``..._ZN..20dcn_bwd_input_kernelILi256EEEv..`` ->
+    ``dcn_bwd_input_kernel<256>``); the symbol itself if none ends in
+    ``_kernel``."""
+    for run in re.finditer(r"\d+", symbol):
+        for k in range(len(run.group())):
+            n = int(run.group()[k:])
+            name = symbol[run.end():run.end() + n]
+            if n and name.endswith("_kernel") and name.isidentifier():
+                args = re.match(r"I((?:L[a-z]\d+E)+)E", symbol[run.end() + n:])
+                if args:
+                    name += "<" + ", ".join(
+                        re.findall(r"L[a-z](\d+)E", args.group(1))) + ">"
+                return name
+    return symbol
 
 
 def build(cfg, build_segmentor, synthetic_batch):
@@ -911,6 +946,8 @@ def check_backward(key, call, launches, mods, tag=""):
     del got, ref
     ms = cuda_ms(lambda: fn(*args), 10)
     plain_ms = cuda_ms(lambda: plain(*args), 1)
+    if name == "dcn_bwd":
+        row.update(dcn_backward_extras(fn, args, mods))
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     row.update(max_abs_err=max(e for e, _ in errors.values()),
@@ -929,6 +966,65 @@ def check_backward(key, call, launches, mods, tag=""):
         raise RuntimeError(f"{row['name']} disagrees with its plain "
                            f"version: {bad}")
     return row
+
+
+def dcn_launches(dcn, args, iters: int = 10) -> dict:
+    """K5's two launches' time per call, by CUDA events: the wrapper
+    running only ``input`` (g_x, g_offset, g_mask) or only ``weight``
+    (g_W), its zero fills and casts (about 0.01 ms) included. (A call
+    that launches neither is bound by the host, so it is not subtracted.)"""
+    def ms(parts):
+        return cuda_ms(lambda: dcn.deform_conv2d_backward_cuda(
+            *args, parts=parts), iters)
+    return {"input": ms(dcn.INPUT_LAUNCH), "weight": ms(dcn.WEIGHT_LAUNCH)}
+
+
+def dcn_backward_extras(fn, args, mods) -> dict:
+    """K5's numbers beside its row: the share of in-image corners outside
+    the kernel's shared-memory g_x window (its global-atomic fallback) and
+    each launch's time; at stage 3 also the same with the offsets moved by
+    uniform(-DCN_PERTURB_PX, DCN_PERTURB_PX) pixels, held to the plain
+    version with the row's tolerances."""
+    import torch
+    dcn = mods.dcn
+    x, offset, mask, weight, g_out = args
+    share, corners = dcn.window_outside_share(offset)
+    launch = dcn_launches(dcn, args)
+    extras = dict(window_outside_share=share, launch_ms=launch)
+    log(f"# deform_conv2d_backward {list(x.shape)}: {share:.6f} of "
+        f"{corners} in-image corners outside the g_x window; input launch "
+        f"{launch['input']:.4f} ms, weight launch {launch['weight']:.4f} ms")
+    if x.shape[-1] != 256:
+        return extras
+    gen = torch.Generator(device=offset.device).manual_seed(5)
+    moved = offset.float() + (torch.rand(
+        offset.shape, generator=gen, device=offset.device) * 2 - 1
+        ) * DCN_PERTURB_PX
+    pargs = (x, moved.contiguous(), mask, weight, g_out)
+    got = fn(*pargs)
+    ref = dcn.deform_conv2d_backward_plain(*pargs)
+    errors = {k: _max_err(k, gt, rf, tol) for k, gt, rf, tol in zip(
+        ("g_x", "g_offset", "g_mask", "g_weight"), got, ref,
+        (BF16_TOL, SUM_TOL, SUM_TOL, BF16_TOL))}
+    del got, ref
+    share, corners = dcn.window_outside_share(moved)
+    ms = cuda_ms(lambda: fn(*pargs), 10)
+    launch = dcn_launches(dcn, pargs)
+    log(f"# deform_conv2d_backward {list(x.shape)}, offsets moved by up to "
+        f"{DCN_PERTURB_PX:g} px: {share:.6f} of {corners} in-image corners "
+        f"outside the g_x window; "
+        + ", ".join(f"{k} {e:.3e} (tol {t:.3e})"
+                    for k, (e, t) in errors.items())
+        + f"; kernel {ms:.4f} ms (input {launch['input']:.4f}, weight "
+          f"{launch['weight']:.4f})")
+    bad = {k: e for k, (e, t) in errors.items() if not e <= t}
+    if bad:
+        raise RuntimeError(f"deform_conv2d_backward with moved offsets "
+                           f"disagrees with its plain version: {bad}")
+    extras["moved_offsets"] = dict(
+        px=DCN_PERTURB_PX, window_outside_share=share, ms=ms,
+        launch_ms=launch, max_abs_err=max(e for e, _ in errors.values()))
+    return extras
 
 
 def check_small_train(name, get_config, build_segmentor, synthetic_batch):

@@ -36,8 +36,8 @@ LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat": 0,
 
 _lock = threading.Lock()
 _lib = None
-#: ptxas register/spill report of the last build (empty when loaded from a
-#: previous build of the same sources)
+#: ptxas register/spill report of the build that made the loaded library
+#: (kept beside it, so a later process that loads it reads the same report)
 BUILD_LOG = ""
 
 
@@ -69,7 +69,9 @@ def build() -> Path:
     global BUILD_LOG
     sources = sorted(CSRC_DIR.glob("*.cu"))
     lib_path = BUILD_DIR / f"libgf_kernels_{_digest(sources)}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
+        BUILD_LOG = log_path.read_text() if log_path.exists() else ""
         return lib_path
     nvcc = _nvcc()
     obj_dir = BUILD_DIR / f"obj_{lib_path.stem}"
@@ -97,6 +99,7 @@ def build() -> Path:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    log_path.write_text(BUILD_LOG)
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -132,6 +135,9 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.gf_dcn_backward.argtypes = [P, P, I, P, I, P, P, P, P, P, P,
                                    I, I, I, I, I, P]
     so.gf_dcn_backward.restype = I
+    so.gf_dcn_backward_parts.argtypes = [P, P, I, P, I, P, P, P, P, P, P,
+                                         I, I, I, I, I, I, P]
+    so.gf_dcn_backward_parts.restype = I
     so.gf_deformable_backward.argtypes = [
         ctypes.POINTER(P), ctypes.POINTER(P), ctypes.POINTER(I),
         ctypes.POINTER(I), I, I, P, P, P, P, P, I, I, I, I, I, I, P]

@@ -20,6 +20,16 @@ import torch
 
 from . import _lib
 
+#: the g_x window of ``csrc/dcn_bwd.cu``'s input-gradient launch (mirrors
+#: its TH, TW, HALO and WCELLS): a block owns a TILE_H x TILE_W tile of
+#: output pixels and sums g_x on chip over the first WINDOW_CELLS cells, in
+#: raster order, of the tile and WINDOW_HALO pixels around it; other
+#: corners in the image take global atomics
+TILE_H, TILE_W, WINDOW_HALO, WINDOW_CELLS = 8, 8, 3, 192
+#: K5's two launches, as ``parts`` bits of
+#: :func:`deform_conv2d_backward_cuda`
+INPUT_LAUNCH, WEIGHT_LAUNCH = 1, 2
+
 
 def deform_conv2d_plain(x, offset, mask, weight, epilogue=None,
                         rows: int = 8, sample_dtype=None):
@@ -143,10 +153,13 @@ def deform_conv2d_backward_plain(x, offset, mask, weight, g_out):
     return g_x.to(x.dtype), g_off, g_mask, g_w.to(weight.dtype)
 
 
-def deform_conv2d_backward_cuda(x, offset, mask, weight, g_out):
-    """Launch ``csrc/dcn_bwd.cu``: bf16 ``x``, ``weight`` and ``g_out``;
-    returns g_x and g_weight in bf16 (summed in fp32), g_offset and g_mask
-    in fp32."""
+def deform_conv2d_backward_cuda(x, offset, mask, weight, g_out,
+                                parts=INPUT_LAUNCH | WEIGHT_LAUNCH):
+    """Launch ``csrc/dcn_bwd.cu``: bf16 ``x``, ``weight`` and ``g_out``
+    (C_out up to 512); returns g_x and g_weight in bf16 (summed in fp32),
+    g_offset and g_mask in fp32. ``parts`` selects the launches (the
+    gradients of one left out stay zero), so that each can be timed
+    alone."""
     name = "deform_conv2d_backward"
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
@@ -158,9 +171,9 @@ def deform_conv2d_backward_cuda(x, offset, mask, weight, g_out):
         raise ValueError(f"{name}: weight has shape {tuple(weight.shape)}")
     if tuple(g_out.shape) != (b, h, w, cout):
         raise ValueError(f"{name}: g_out has shape {tuple(g_out.shape)}")
-    if cin % 64 or cout % 8:
-        raise ValueError(f"{name}: needs C_in % 64 == 0 and C_out % 8 == 0,"
-                         f" got {cin}, {cout}")
+    if cin % 64 or cout % 8 or cout > 512:
+        raise ValueError(f"{name}: needs C_in % 64 == 0, C_out % 8 == 0 and"
+                         f" C_out <= 512, got {cin}, {cout}")
     if offset.device != x.device or mask.device != x.device:
         raise ValueError(f"{name}: offset and mask must be on {x.device}")
     s_off = _pixel_stride(name, "offset", offset, b, h, w, 18)
@@ -168,15 +181,16 @@ def deform_conv2d_backward_cuda(x, offset, mask, weight, g_out):
     f32 = dict(dtype=torch.float32, device=x.device)
     g_x = torch.zeros(b, h, w, cin, **f32)
     g_w = torch.zeros(9 * cin, cout, **f32)
-    g_offset = torch.empty(b, h, w, 18, **f32)
-    g_mask = torch.empty(b, h, w, 9, **f32)
-    code = _lib.lib().gf_dcn_backward(
+    g_offset = torch.zeros(b, h, w, 18, **f32)
+    g_mask = torch.zeros(b, h, w, 9, **f32)
+    code = _lib.lib().gf_dcn_backward_parts(
         x.data_ptr(), offset.data_ptr(), s_off, mask.data_ptr(), s_mask,
         weight.data_ptr(), g_out.data_ptr(), g_x.data_ptr(),
         g_offset.data_ptr(), g_mask.data_ptr(), g_w.data_ptr(),
-        b, h, w, cin, cout, _lib.stream_ptr(x))
+        b, h, w, cin, cout, parts, _lib.stream_ptr(x))
     _lib.check(code, name)
-    _lib.LAUNCHES["dcn_bwd"] += 1
+    if parts:
+        _lib.LAUNCHES["dcn_bwd"] += 1
     return (g_x.to(x.dtype), g_offset, g_mask,
             g_w.reshape(weight.shape).to(weight.dtype))
 
@@ -187,6 +201,31 @@ def deform_conv2d_backward(x, offset, mask, weight, g_out):
     if x.device.type == "cpu":
         return deform_conv2d_backward_plain(x, offset, mask, weight, g_out)
     return deform_conv2d_backward_cuda(x, offset, mask, weight, g_out)
+
+
+def window_outside_share(offset) -> tuple[float, int]:
+    """Of the bilinear corners inside the image that the samples of
+    ``offset`` [B, H, W, 18] reach, the share that lies outside the g_x
+    window of the output pixel's tile (and so takes the backward kernel's
+    global-atomic fallback), and the count of corners in the image."""
+    b, h, w, _ = offset.shape
+    dev = offset.device
+    off = offset.detach().float().reshape(b, h, w, 9, 2)
+    tap = torch.arange(9, device=dev)
+    yy = torch.arange(h, device=dev)[:, None, None]
+    xx = torch.arange(w, device=dev)[None, :, None]
+    y0 = torch.floor((yy - 1 + tap // 3) + off[..., 0]).long()
+    x0 = torch.floor((xx - 1 + tap % 3) + off[..., 1]).long()
+    cy = torch.stack([y0, y0, y0 + 1, y0 + 1], -1)
+    cx = torch.stack([x0, x0 + 1, x0, x0 + 1], -1)
+    inside = (cy >= 0) & (cy <= h - 1) & (cx >= 0) & (cx <= w - 1)
+    wy = cy - ((yy // TILE_H) * TILE_H - WINDOW_HALO)[..., None]
+    wx = cx - ((xx // TILE_W) * TILE_W - WINDOW_HALO)[..., None]
+    ww = TILE_W + 2 * WINDOW_HALO
+    in_win = ((wy >= 0) & (wy < TILE_H + 2 * WINDOW_HALO) & (wx >= 0)
+              & (wx < ww) & (wy * ww + wx < WINDOW_CELLS))
+    n = int(inside.sum())
+    return int((inside & ~in_win).sum()) / max(n, 1), n
 
 
 class DeformConv2dFunction(torch.autograd.Function):

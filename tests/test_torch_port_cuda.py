@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at small shapes with the edge cases the flagship path does not
-reach: DCN offsets of several pixels (corners outside the image), masked
+reach: DCN offsets of several pixels (corners outside the image and, in
+the backward, outside the kernel's shared-memory g_x window), masked
 and exhausted FPS, fp32 deformable features, a splat with sparse and dense
 coverage, the additive splat with the v1 head's whole-grid Gaussian; and
 the backward kernels K5-K7 against their plain backward versions on random
@@ -118,15 +119,40 @@ def _close(got, ref, tol, name):
     assert err <= tol * ref.float().abs().max(), (name, err.item())
 
 
-def test_dcn_backward_kernel_matches_plain(gen):
-    """K5: two input-channel chunks, C_out not a multiple of the tiles, and
-    enough pixels (2460) that the weight gradient splits them."""
-    b, h, w, cin, cout = 2, 30, 41, 128, 136
+@pytest.mark.parametrize("shape", [(2, 30, 41, 128, 136),
+                                   (1, 13, 27, 512, 512)])
+@pytest.mark.parametrize("offsets",
+                         ["fractional", "3px", "12px", "converging"])
+def test_dcn_backward_kernel_matches_plain(gen, shape, offsets):
+    """K5 for four offset regimes: fractional (every corner in the
+    kernel's g_x window), up to 3 px, up to 12 px (far outside any window
+    and off the image edges: the global-atomic fallback), and converging
+    (every sample of an 8 x 8 tile near one point, so that the window
+    cells' buckets overflow into the fallback). Shapes: tiles, C_out and
+    the pixel splits of the weight gradient not whole (2460 pixels,
+    C_out 136), and C_out 512 (the g_out tile at its largest, two
+    output-channel halves of the weight gradient)."""
+    b, h, w, cin, cout = shape
     x = randn(gen, b, h, w, cin).bfloat16()
-    om = randn(gen, b, h, w, 27, scale=3.0)
+    om = randn(gen, b, h, w, 27)
+    jitter = torch.rand(b, h, w, 18, generator=gen, device="cuda")
+    if offsets == "converging":
+        # sample (y - 1 + ky + dy, x - 1 + kx + dx) at the tile's centre
+        tap = torch.arange(9, device="cuda")
+        yy = torch.arange(h, device="cuda")[:, None, None]
+        xx = torch.arange(w, device="cuda")[None, :, None]
+        dy = (yy // 8) * 8 + 3.5 - (yy - 1 + tap // 3)
+        dx = (xx // 8) * 8 + 3.5 - (xx - 1 + tap % 3)
+        om[..., :18] = (torch.stack([dy.expand(h, w, 9), dx.expand(h, w, 9)],
+                                    -1).reshape(h, w, 18) + jitter * 0.5)
+    else:
+        scale = {"fractional": 0.99, "3px": 3.0, "12px": 12.0}[offsets]
+        om[..., :18] = (jitter * 2 - 1) * scale
     offset, mask = om[..., :18], torch.sigmoid(om[..., 18:])
     weight = randn(gen, 3, 3, cin, cout, scale=0.05).bfloat16()
     g_out = randn(gen, b, h, w, cout).bfloat16()
+    outside, _ = dcn.window_outside_share(offset)
+    assert (outside == 0) == (offsets in ("fractional", "converging"))
     got = dcn.deform_conv2d_backward_cuda(x, offset, mask, weight, g_out)
     ref = dcn.deform_conv2d_backward_plain(x, offset, mask, weight, g_out)
     for name, gt, rf, tol in zip(("g_x", "g_offset", "g_mask", "g_weight"),
@@ -134,6 +160,28 @@ def test_dcn_backward_kernel_matches_plain(gen):
                                             BF16_TOL)):
         assert gt.dtype == rf.dtype and gt.shape == rf.shape, name
         _close(gt, rf, tol, name)
+
+
+def test_dcn_backward_parts_split_the_outputs(gen):
+    """K5's launches one at a time (as ``chip_smoke.py`` times them): the
+    input launch gives g_x, g_offset and g_mask and leaves g_weight zero,
+    the weight launch the reverse; together they are the whole call."""
+    b, h, w, cin, cout = 2, 30, 41, 128, 136
+    x = randn(gen, b, h, w, cin).bfloat16()
+    offset = randn(gen, b, h, w, 18) * 3
+    mask = torch.sigmoid(randn(gen, b, h, w, 9))
+    weight = randn(gen, 3, 3, cin, cout, scale=0.05).bfloat16()
+    g_out = randn(gen, b, h, w, cout).bfloat16()
+    args = (x, offset, mask, weight, g_out)
+    whole = dcn.deform_conv2d_backward_cuda(*args)
+    inp = dcn.deform_conv2d_backward_cuda(*args, parts=dcn.INPUT_LAUNCH)
+    wgt = dcn.deform_conv2d_backward_cuda(*args, parts=dcn.WEIGHT_LAUNCH)
+    for i, (name, tol) in enumerate((("g_x", BF16_TOL), ("g_offset", SUM_TOL),
+                                     ("g_mask", SUM_TOL),
+                                     ("g_weight", BF16_TOL))):
+        part, other = (wgt, inp) if name == "g_weight" else (inp, wgt)
+        _close(part[i], whole[i], tol, name)
+        assert not other[i].any(), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -24,7 +24,8 @@ from gaussianformer_tpu.ops.splat import SplatGridSpec as JaxGrid
 from gaussianformer_tpu.ops.splat import splat as jax_splat
 from gaussianformer_tpu.ops.splat import splat_backward as jax_splat_bwd
 
-from gaussianformer_tpu_torch.kernels.dcn import DeformConv2dFunction
+from gaussianformer_tpu_torch.kernels.dcn import (DeformConv2dFunction,
+                                                  window_outside_share)
 from gaussianformer_tpu_torch.kernels.deformable import \
     deformable_aggregation
 from gaussianformer_tpu_torch.ops.splat import SplatGridSpec, splat_prob
@@ -49,18 +50,24 @@ def close(got, ref, scale_tol=False, err_msg=""):
                                    err_msg=err_msg)
 
 
-def test_dcn_grads_match_jax():
-    """g_x, g_offset, g_mask, g_weight. Offsets of up to 3 px push corners
-    out of the image; every sample's fractional part lies in [0.1, 0.9],
-    away from the integer positions where bilinear gradients jump."""
+@pytest.mark.parametrize("h,w,px", [(7, 9, 3), (20, 37, 12)])
+def test_dcn_grads_match_jax(h, w, px):
+    """g_x, g_offset, g_mask, g_weight. Offsets of up to ``px`` pixels push
+    corners out of the image and, at 12 px, far outside the backward
+    kernel's g_x window (8 x 8 tiles with a 3-pixel halo), the regime of
+    its global-atomic fallback; every sample's fractional part lies in
+    [0.1, 0.9], away from the integer positions where bilinear gradients
+    jump."""
     rng = np.random.RandomState(11)
-    b, h, w, cin, cout = 2, 7, 9, 16, 8
+    b, cin, cout = 2, 16, 8
     x = rng.randn(b, h, w, cin).astype(np.float32)
-    offset = (rng.randint(-3, 4, (b, h, w, 18))
+    offset = (rng.randint(-px, px + 1, (b, h, w, 18))
               + rng.uniform(0.1, 0.9, (b, h, w, 18))).astype(np.float32)
     mask = (1 / (1 + np.exp(-rng.randn(b, h, w, 9)))).astype(np.float32)
     weight = (rng.randn(3, 3, cin, cout) / 12).astype(np.float32)
     g_out = rng.randn(b, h, w, cout).astype(np.float32)
+    if px > 3:  # most corners in the image take the kernel's fallback
+        assert window_outside_share(t(offset))[0] > 0.3
     out, vjp = jax.vjp(lambda *a: jax_dcn(*a), x, offset, mask, weight)
     refs = vjp(jnp.asarray(g_out))
     leaves = [t(a, True) for a in (x, offset, mask, weight)]
