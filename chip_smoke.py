@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU: the prob_gs6400 (GaussianFormer-2)
-inference and training step, and the v1 GaussianFormer configs
-(gs25600_solid and gs144000, inference and training step).
+"""Drive the PyTorch port on one NVIDIA GPU: the GaussianFormer-2 configs
+(prob_gs6400, prob_gs12800 and prob_gs25600) and the v1 GaussianFormer
+configs (gs25600_solid and gs144000), each its inference and training step;
+the prob head's threshold label mode and per-axis splat boxes.
 
     python3 chip_smoke.py
 
@@ -13,8 +14,9 @@ Phases (each raises on failure, so the script exits nonzero):
             grid, random weights from a seed) under inference mode,
             capturing each kernel's inputs; then one counted frame (every
             launch counter set to 0 just before, read just after: 52 DCN,
-            1 FPS, 4 deformable, 1 splat launches, no backward kernel) and
-            three timed frames;
+            1 FPS, 4 deformable, 1 splat launches, no backward kernel),
+            three timed frames and one profiled frame for the device's idle
+            share;
 3. kernels  each forward kernel against its plain PyTorch version on the
             captured inputs, with its tolerance; kernel, plain and bound
             times;
@@ -51,7 +53,21 @@ Phases (each raises on failure, so the script exits nonzero):
             among the trained leaves) and its backward kernels as in phase
             6, the empty Gaussian's gradient row held on its own and the
             other rows to their own largest value; the tiny
-            gs25600_solid forward and two train steps, GPU against CPU.
+            gs25600_solid forward and two train steps, GPU against CPU;
+9. family   prob_gs12800 (Prob-128: 6400 FPS anchors + 6400 random) and
+            prob_gs25600 (Prob-256: 19,200 FPS anchors + 6400 random) at
+            full width, each as phases 2, 3, 5 and 6 do: frames and train
+            steps with the flagship's launch counts, every kernel against
+            its plain version on the config's own inputs (K2's 6400 or
+            19,200 indices all equal);
+10. threshold one Prob-256 frame with combine_geosem off (the same seed):
+            K4's threshold label epilogue against the plain labels (equal
+            but for near-ties, which are counted), its sums to the prob
+            tolerance, and its time beside the combine mode's on the same
+            inputs;
+11. per-axis K4 and K7 on Prob-256's head inputs packed again with
+            per-axis boxes, against their plain versions (printed, not in
+            the kernels line: no shipped config runs this path).
 
 The second-to-last lines are the card's name and power limit and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -134,8 +150,24 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed(fn):
+    """One call of ``fn`` and its time in ms by CUDA events. A plain version
+    is timed by the call that makes its reference: the slow ones take
+    seconds (the v1 splat backward 29 s), where a warm-up and a second call
+    would only add time."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 class Capture:
-    """Record the first inputs each kernel wrapper sees (per shape key)."""
+    """Record the first inputs each kernel wrapper sees (per shape key):
+    ``calls[key] = (wrapper, args, kwargs)``."""
 
     def __init__(self, modules):
         self.calls = {}
@@ -147,11 +179,11 @@ class Capture:
 
     def _wrap(self, fn, keyfn):
         def wrapped(*args, **kwargs):
-            key = keyfn(*args)
+            key = keyfn(*args, **kwargs)
             if key not in self.calls:
                 # the forward never writes its tensors in place, so the
                 # references stay the inputs the kernel saw
-                self.calls[key] = (fn, args)
+                self.calls[key] = (fn, args, kwargs)
             return fn(*args, **kwargs)
         return wrapped
 
@@ -179,6 +211,7 @@ def main() -> int:
     from gaussianformer_tpu_torch.data.synthetic import synthetic_batch
     from gaussianformer_tpu_torch.kernels import dcn, deformable, fps, splat
     from gaussianformer_tpu_torch.models.segmentor import build_segmentor
+    from gaussianformer_tpu_torch.ops import splat as ops_splat
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -201,7 +234,7 @@ def main() -> int:
     log(f"# fps cluster size: {_lib.lib().gf_fps_cluster_size()}")
 
     mods = types.SimpleNamespace(dcn=dcn, fps=fps, deformable=deformable,
-                                 splat=splat, lib=_lib)
+                                 splat=splat, lib=_lib, ops_splat=ops_splat)
 
     # ---- 2. full forward
     cfg = get_config("prob_gs6400")
@@ -254,11 +287,17 @@ def main() -> int:
     # ---- 8. the v1 configs
     v1 = v1_phase(get_config, build_segmentor, synthetic_batch, mods, rows)
 
+    # ---- 9-11. the GaussianFormer-2 family, the threshold label mode and
+    # per-axis boxes
+    family = prob_family_phase(get_config, build_segmentor, synthetic_batch,
+                               mods, rows)
+
     kernels = [r for r in rows if r.pop("report")]
     log(json.dumps({"card": card, "frame_ms": frame_ms,
                     "frame_wall_ms": wall_ms,
+                    "frame_idle_share": fwd["frame_idle_share"],
                     **{k: v for k, v in train.items() if k != "launches"},
-                    **v1}))
+                    **v1, **family}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -301,24 +340,31 @@ def build(cfg, build_segmentor, synthetic_batch):
 
 
 def capture_specs(mods, backward: bool):
-    """(module, wrapper name, key of a call) of the kernels to capture:
-    one key per kernel and shape (and splat variant)."""
+    """(module, function name, key of a call) of the kernels to capture:
+    one key per kernel and shape (and splat variant); also the head's
+    splat inputs before packing (``ops.splat.pack_gaussians``)."""
+    pack = (mods.ops_splat, "pack_gaussians",
+            lambda means, *a, **k: ("pack", means.shape[0]))
     if backward:
         return [
             (mods.dcn, "deform_conv2d_backward_cuda",
-             lambda x, *a: ("dcn_bwd", x.shape[-1])),
+             lambda x, *a, **k: ("dcn_bwd", x.shape[-1])),
             (mods.deformable, "deformable_aggregation_backward_cuda",
-             lambda feats, pts, *a: ("deformable_bwd", pts.shape[1])),
+             lambda feats, pts, *a, **k: ("deformable_bwd", pts.shape[1])),
             (mods.splat, "splat_backward_cuda",
-             lambda pts, gdata, *a: ("splat_bwd", a[-1], gdata.shape[0])),
+             lambda pts, gdata, *a, **k: ("splat_bwd", a[-1],
+                                          gdata.shape[0])),
+            pack,
         ]
     return [
-        (mods.dcn, "deform_conv2d_cuda", lambda x, *a: ("dcn", x.shape[-1])),
-        (mods.fps, "farthest_point_sampling_cuda", lambda *a: ("fps",)),
+        (mods.dcn, "deform_conv2d_cuda",
+         lambda x, *a, **k: ("dcn", x.shape[-1])),
+        (mods.fps, "farthest_point_sampling_cuda", lambda *a, **k: ("fps",)),
         (mods.deformable, "deformable_aggregation_cuda",
-         lambda feats, pts, *a: ("deformable", pts.shape[1])),
+         lambda feats, pts, *a, **k: ("deformable", pts.shape[1])),
         (mods.splat, "splat_accumulate_cuda",
-         lambda pts, gdata, *a: ("splat", a[-1], gdata.shape[0])),
+         lambda pts, gdata, *a, **k: ("splat", a[-1], gdata.shape[0])),
+        pack,
     ]
 
 
@@ -386,8 +432,36 @@ def frame_phase(cfg, model, batch, mods, expected, frames):
     log(f"# {cfg.name} forward: {frame_ms:.3f} ms/frame (CUDA events), "
         f"{wall_ms:.3f} ms/frame host wall, {frames} frames, batch 1")
     log(f"# {cfg.name} peak device memory: {peak_gib:.2f} GiB")
+    idle = idle_share(lambda: frame(2 + frames), frame_ms,
+                      f"{cfg.name} frame")
     return dict(calls=cap.calls, launches=launches, frame_ms=frame_ms,
-                frame_wall_ms=wall_ms, frame_peak_gib=peak_gib)
+                frame_wall_ms=wall_ms, frame_peak_gib=peak_gib,
+                frame_idle_share=idle)
+
+
+def idle_share(run, unprofiled_ms, what):
+    """The device's idle share of ``run`` (one frame or step): its busy
+    time under ``torch.profiler`` against the unprofiled mean time (the
+    profiler slows the host far more than the device); None where the
+    profiler recorded no device time."""
+    import torch
+    from gaussianformer_tpu_torch.profile_forward import device_busy_ms
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    busy_ms = device_busy_ms(prof.key_averages())
+    idle = None if busy_ms == 0 else 1.0 - busy_ms / unprofiled_ms
+    log(f"# {what} profiled: {start.elapsed_time(end):.3f} ms, device busy "
+        f"{busy_ms:.3f} ms; idle share against the unprofiled "
+        f"{unprofiled_ms:.3f} ms: "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    return idle
 
 
 def v1_phase(get_config, build_segmentor, synthetic_batch, mods, rows):
@@ -427,6 +501,106 @@ def v1_phase(get_config, build_segmentor, synthetic_batch, mods, rows):
     return summary
 
 
+def prob_family_phase(get_config, build_segmentor, synthetic_batch, mods,
+                      rows):
+    """Phases 9-11: Prob-128 and Prob-256 at full width, the threshold
+    label mode on a Prob-256 frame and per-axis boxes on Prob-256's head
+    inputs. Appends their kernel rows to ``rows`` (the per-axis ones
+    printed, not reported) and returns the summary numbers."""
+    import dataclasses
+    import torch
+    summary = {}
+    fwd_kernels = ("dcn", 256), ("dcn", 512), ("fps",)
+    bwd_kernels = ("dcn_bwd", 256), ("dcn_bwd", 512)
+    for name in ("prob_gs12800", "prob_gs25600"):
+        cfg = get_config(name)
+        p = cfg.total_anchors
+        model, batch = build(cfg, build_segmentor, synthetic_batch)
+        fwd = frame_phase(cfg, model, batch, mods, EXPECTED_LAUNCHES, FRAMES)
+        with torch.inference_mode():
+            for key in fwd_kernels + (("deformable", p * 7),
+                                      ("splat", "prob", p)):
+                rows.append(check_kernel(key, captured(fwd["calls"], key),
+                                         fwd["launches"], mods, tag=name))
+        k2 = next(r for r in rows
+                  if r["name"] == f"farthest_point_sampling_{name}")
+        if k2["shape"][1] != cfg.num_anchor:
+            raise RuntimeError(f"{name}: FPS selected {k2['shape'][1]}, "
+                               f"not {cfg.num_anchor}")
+        train = train_phase(cfg, model, batch, mods,
+                            EXPECTED_TRAIN_LAUNCHES, STEPS)
+        with torch.no_grad():
+            for key in bwd_kernels + (("deformable_bwd", p * 7),
+                                      ("splat_bwd", "prob", p)):
+                rows.append(check_backward(
+                    key, captured(train["calls"], key), train["launches"],
+                    mods, tag=name))
+            if name == "prob_gs25600":
+                check_per_axis(fwd["calls"], train["calls"], p, mods, rows)
+        for part in (fwd, train):
+            del part["calls"], part["launches"]
+        summary.update({f"{name}_{k}": v for k, v in fwd.items()})
+        summary.update({f"{name}_{k}": v for k, v in train.items()})
+        del model, batch, fwd, train
+        torch.cuda.empty_cache()
+
+    # ---- 10. the threshold label mode: Prob-256 with combine_geosem off,
+    # the same seed
+    cfg = get_config("prob_gs25600")
+    cfg = dataclasses.replace(cfg, name=f"{cfg.name}_threshold",
+                              combine_geosem=False)
+    p = cfg.total_anchors
+    model, batch = build(cfg, build_segmentor, synthetic_batch)
+    fwd = frame_phase(cfg, model, batch, mods, EXPECTED_LAUNCHES, FRAMES)
+    key = ("splat", "prob", p)
+    call = captured(fwd["calls"], key)
+    with torch.inference_mode():
+        row = check_kernel(key, call, fwd["launches"], mods,
+                           tag="prob_gs25600")
+        fn, args, kw = call
+        if kw.get("label_mode") != "threshold":
+            raise RuntimeError(f"the {cfg.name} head called K4 with {kw}")
+        # the accumulation does not depend on the label mode
+        row["combine_ms"] = cuda_ms(lambda: fn(*args), 10)
+    log(f"# splat_prob_threshold_prob_gs25600: {row['ms']:.4f} ms, the "
+        f"combine mode on the same inputs {row['combine_ms']:.4f} ms")
+    rows.append(row)
+    del fwd["calls"], fwd["launches"], call, args
+    summary.update({f"{cfg.name}_{k}": v for k, v in fwd.items()})
+    del model, batch, fwd
+    torch.cuda.empty_cache()
+    return summary
+
+
+def check_per_axis(fwd_calls, train_calls, p, mods, rows):
+    """Phase 11: K4 (the frame's) and K7 (the train step's) on Prob-256's
+    head inputs packed again with per-axis boxes, against their plain
+    versions with the prob rows' tolerances; printed, not reported (no
+    shipped config takes this path)."""
+    pack = mods.ops_splat.pack_gaussians
+
+    def per_axis_tables(calls):
+        _, args, _ = captured(calls, ("pack", p))
+        return pack(*args[:6], per_axis=True)
+
+    gdata, box, sem_aug = per_axis_tables(fwd_calls)
+    fn, args, kw = captured(fwd_calls, ("splat", "prob", p))
+    call = (fn, (args[0], gdata, box, sem_aug) + args[4:], kw)
+    row = check_kernel(("splat", "prob", p), call, {"splat": 0}, mods,
+                       tag="prob_gs25600_per_axis")
+    iso = splat_pairs(args[0], args[2], args[4])
+    log(f"# per-axis boxes: {row['aabb_pairs']} AABB pairs against "
+        f"{iso} isotropic")
+    _, box7, _ = per_axis_tables(train_calls)
+    fn, args, kw = captured(train_calls, ("splat_bwd", "prob", p))
+    call = (fn, args[:4] + (box7,) + args[5:], kw)
+    row7 = check_backward(("splat_bwd", "prob", p), call, {"splat_bwd": 0},
+                          mods, tag="prob_gs25600_per_axis")
+    for r in (row, row7):
+        r["report"] = False
+        rows.append(r)
+
+
 def check_kernel(key, call, launches, mods, tag=""):
     """Kernel vs plain on one captured call; returns its kernels-line row
     (``report`` False for the stage-4 DCN shape, printed but folded into
@@ -434,7 +608,7 @@ def check_kernel(key, call, launches, mods, tag=""):
     config whose shapes these are, where not the flagship's."""
     dcn, fps, deformable, splat = (mods.dcn, mods.fps, mods.deformable,
                                    mods.splat)
-    fn, args = call
+    fn, args, kw = call
     name = key[0]
     suffix = f"_{tag}" if tag else ""
     if name == "dcn":
@@ -454,7 +628,7 @@ def check_kernel(key, call, launches, mods, tag=""):
         flops = 2.0 * b * h * w * 9 * cin * cout
         nbytes = (x.numel() * 2 + b * h * w * 27 * 4 + weight.numel() * 2
                   + 2 * cout * 4 + b * h * w * cout * 2)
-        row = dict(name="deform_conv2d", route="cuda",
+        row = dict(name="deform_conv2d" + suffix, route="cuda",
                    source="gaussianformer_tpu_torch/csrc/dcn.cu",
                    replaces="gaussianformer_tpu/ops/pallas/dcn_kernel.py:206",
                    launches=launches["dcn"], shape=[b, h, w, cin, cout],
@@ -462,16 +636,15 @@ def check_kernel(key, call, launches, mods, tag=""):
     elif name == "fps":
         points, num_samples = args[0], args[1]
         got = fn(*args)
-        ref = fps.farthest_point_sampling_plain(*args)
+        ref, plain_ms = timed(
+            lambda: fps.farthest_point_sampling_plain(*args))
         err = float((got != ref).sum().item())   # indices must be equal
         tol = 0.0
         ms = cuda_ms(lambda: fn(*args), 5)
-        plain_ms = cuda_ms(lambda: fps.farthest_point_sampling_plain(*args),
-                           1)
         n = points.shape[0]
         flops = float(num_samples) * n * 9        # 3 sub, 3 mul, 2 add, min
         nbytes = n * 12 + num_samples * 4
-        row = dict(name="farthest_point_sampling", route="cuda",
+        row = dict(name="farthest_point_sampling" + suffix, route="cuda",
                    source="gaussianformer_tpu_torch/csrc/fps.cu",
                    replaces="gaussianformer_tpu/ops/pallas/fps_kernel.py:56",
                    launches=launches["fps"], shape=[n, num_samples],
@@ -506,7 +679,7 @@ def check_kernel(key, call, launches, mods, tag=""):
     elif key[1] == "additive":
         points, gdata, box, sem_aug, grid, variant = args
         got = fn(*args)
-        ref = splat.splat_accumulate_plain(*args)
+        ref, plain_ms = timed(lambda: splat.splat_accumulate_plain(*args))
         c = sem_aug.shape[1] - 2
         err, tol = held_additive(f"splat_additive{suffix}", got, ref, c)
         if splat_pairs(points, box[-1:], grid) > BIG_BOX:
@@ -522,8 +695,6 @@ def check_kernel(key, call, launches, mods, tag=""):
                           splat.splat_accumulate_plain(*args0), c)
             del sem0, args0
         ms = cuda_ms(lambda: fn(*args), 10)
-        plain_ms = cuda_ms(lambda: splat.splat_accumulate_plain(*args), 1,
-                           warmup=0)
         pairs = splat_pairs(points, box, grid)
         # per (point, Gaussian) pair in the AABB: displacement and
         # quadratic form (~20), exp (~4), C multiply-adds
@@ -541,8 +712,9 @@ def check_kernel(key, call, launches, mods, tag=""):
                    shape=[n, gdata.shape[0]], aabb_pairs=pairs, report=True)
     else:
         points, gdata, box, sem_aug, grid, variant = args
-        got = fn(*args)
-        ref = splat.splat_accumulate_plain(*args)
+        got = fn(*args, **kw)
+        ref, plain_ms = timed(
+            lambda: splat.splat_accumulate_plain(*args, **kw))
         err = (got[0] - ref[0]).abs().max().item()
         # fp32 sums over up to thousands of Gaussians in another order
         tol = 1e-4 * max(ref[0].abs().max().item(), 1.0)
@@ -550,13 +722,17 @@ def check_kernel(key, call, launches, mods, tag=""):
         log(f"# splat one_minus max_abs_err {err_om:.3e} (tol 1e-4)")
         if not err_om <= 1e-4:
             raise RuntimeError(f"splat one_minus disagrees: {err_om}")
-        agree = (got[2] == ref[2]).float().mean().item()
-        log(f"# splat labels agree on {agree:.6f} of voxels "
-            f"(required >= 0.999: near-ties may flip)")
-        if agree < 0.999:
-            raise RuntimeError(f"splat labels agree on only {agree}")
-        ms = cuda_ms(lambda: fn(*args), 10)
-        plain_ms = cuda_ms(lambda: splat.splat_accumulate_plain(*args), 1)
+        mode = kw.get("label_mode", "combine")
+        if mode == "threshold":
+            held_threshold_labels(f"splat_prob_threshold{suffix}", got, ref,
+                                  kw["thresh"], kw["empty_label"], splat)
+        else:
+            agree = (got[2] == ref[2]).float().mean().item()
+            log(f"# splat labels agree on {agree:.6f} of voxels "
+                f"(required >= 0.999: near-ties may flip)")
+            if agree < 0.999:
+                raise RuntimeError(f"splat labels agree on only {agree}")
+        ms = cuda_ms(lambda: fn(*args, **kw), 10)
         pairs = splat_pairs(points, box, grid)
         c = sem_aug.shape[1]
         # per (point, Gaussian) pair in the AABB: displacement and
@@ -565,12 +741,15 @@ def check_kernel(key, call, launches, mods, tag=""):
         n = points.shape[0]
         nbytes = (n * 12 + gdata.numel() * 4 + box.numel() * 4
                   + sem_aug.numel() * 4 + n * (c + 2) * 4)
-        row = dict(name="splat_prob_labels", route="cuda",
+        row = dict(name=("splat_prob_labels" if mode == "combine"
+                         else "splat_prob_threshold") + suffix, route="cuda",
                    source="gaussianformer_tpu_torch/csrc/splat.cu",
                    replaces="gaussianformer_tpu/ops/pallas/"
                             "splat_kernel.py:249",
                    launches=launches["splat"], shape=[n, gdata.shape[0]],
                    aabb_pairs=pairs, report=True)
+        log(f"# {row['name']}: {pairs} AABB pairs, {gdata.shape[0]} "
+            f"Gaussians")
     peak = PEAK_BF16 if name == "dcn" else PEAK_FP32
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -623,6 +802,28 @@ def held_additive(name, got, ref, c):
                            f"labelled 0")
     worst = int((col_err / col_tol.clamp_min(1e-30)).argmax().item())
     return col_err[worst].item(), col_tol[worst].item()
+
+
+def held_threshold_labels(name, got, ref, thresh, empty_label, splat):
+    """Hold the prob splat's threshold-mode labels to the plain version's:
+    equal wherever the plain occupancy is more than 1e-6 from ``thresh``
+    and, above it, the plain top-two normalised semantics differ by more
+    than 1e-6 (fp32 sums in another order may flip the others). Prints how
+    many voxels that leaves out."""
+    logits, bins, _ = splat.postprocess_prob(ref[0], ref[1])
+    top = logits.topk(2, dim=-1).values
+    near = ((bins - thresh).abs() < 1e-6) | (
+        (bins > thresh) & (top[:, 0] - top[:, 1] < 1e-6))
+    wrong = int((got[2][~near] != ref[2][~near]).sum().item())
+    occupied = (bins > thresh).float().mean().item()
+    empty = (ref[2] == empty_label).float().mean().item()
+    log(f"# {name} labels: {int(near.sum().item())} of {near.numel()} voxels "
+        f"excluded as near-ties, {wrong} of the others differ; occupancy "
+        f"above {thresh} in {occupied:.4f} of voxels, label {empty_label} "
+        f"in {empty:.4f}")
+    if wrong:
+        raise RuntimeError(f"{name}: {wrong} labels differ from the plain "
+                           f"version")
 
 
 def splat_pairs(points, box, grid) -> int:
@@ -714,7 +915,6 @@ def train_phase(cfg, model, batch, mods, expected, steps):
     profiled step. Raises on wrong launch counts, non-finite metrics, a
     trained parameter that did not move or a frozen one that changed."""
     import torch
-    from gaussianformer_tpu_torch.profile_forward import device_busy_ms
     from gaussianformer_tpu_torch.train.optim import (build_optimizer,
                                                       frozen_prefixes,
                                                       param_labels)
@@ -768,22 +968,8 @@ def train_phase(cfg, model, batch, mods, expected, steps):
         f"{step_wall_ms:.3f} ms/step host wall, {steps} steps, batch 1; "
         f"peak device memory {peak_gib:.2f} GiB; last {vals}")
 
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        start_ev.record()
-        step("profiled")
-        end_ev.record()
-        torch.cuda.synchronize()
-    traced_ms = start_ev.elapsed_time(end_ev)
-    busy_ms = device_busy_ms(prof.key_averages())
-    # the profiler slows the host far more than the device, so the idle
-    # share is the device's busy time against an unprofiled step
-    idle = None if busy_ms == 0 else 1.0 - busy_ms / step_ms
-    log(f"# {cfg.name} profiled train step: {traced_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms; idle share against the unprofiled "
-        f"{step_ms:.3f} ms/step: "
-        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    idle = idle_share(lambda: step("profiled"), step_ms,
+                      f"{cfg.name} train step")
 
     frozen_changed, still = [], []
     for n, prm in model.named_parameters():
@@ -831,7 +1017,7 @@ def check_backward(key, call, launches, mods, tag=""):
     not reported, as for K1). ``tag`` as in :func:`check_kernel`."""
     import torch
     dcn, deformable, splat = mods.dcn, mods.deformable, mods.splat
-    fn, args = call
+    fn, args, _ = call
     name = key[0]
     suffix = f"_{tag}" if tag else ""
     if name == "dcn_bwd":
@@ -848,7 +1034,7 @@ def check_backward(key, call, launches, mods, tag=""):
                   + 2 * g_out.numel()                       # inputs
                   + 2 * x.numel() + m * 27 * 4 + 2 * weight.numel())
         peak = PEAK_BF16
-        row = dict(name="deform_conv2d_backward", route="cuda",
+        row = dict(name="deform_conv2d_backward" + suffix, route="cuda",
                    source="gaussianformer_tpu_torch/csrc/dcn_bwd.cu",
                    replaces="gaussianformer_tpu/ops/pallas/"
                             "dcn_kernel.py:463",
@@ -902,8 +1088,8 @@ def check_backward(key, call, launches, mods, tag=""):
                   + gdata.numel() * 4 + opa.numel() * 4 + sem.numel() * 4
                   + box.numel() * 4 + p * (3 + 1 + c + 6) * 4)
         peak = PEAK_FP32
-        row = dict(name=("splat_bwd_additive" + suffix if additive
-                         else "splat_prob_backward"), route="cuda",
+        row = dict(name=("splat_bwd_additive" if additive
+                         else "splat_prob_backward") + suffix, route="cuda",
                    source="gaussianformer_tpu_torch/csrc/splat_bwd.cu",
                    replaces="gaussianformer_tpu/ops/pallas/"
                             "splat_bwd_kernel.py:196",
@@ -911,7 +1097,7 @@ def check_backward(key, call, launches, mods, tag=""):
                                      else "splat_bwd"], shape=[n, p],
                    aabb_pairs=pairs, report=True)
     got = fn(*args)
-    ref = plain(*args)
+    ref, plain_ms = timed(lambda: plain(*args))
     vol = (splat_pairs(points, box[-1:], grid)
            if name == "splat_bwd" and additive else 0)
     if vol > BIG_BOX:
@@ -945,7 +1131,6 @@ def check_backward(key, call, launches, mods, tag=""):
                         for k, (e, t) in whole.items()))
     del got, ref
     ms = cuda_ms(lambda: fn(*args), 10)
-    plain_ms = cuda_ms(lambda: plain(*args), 1)
     if name == "dcn_bwd":
         row.update(dcn_backward_extras(fn, args, mods))
     t_ops = flops / peak * 1e3

@@ -3,6 +3,8 @@ gaussianformer_tpu/configs/nuscenes.py:
 
   - ``prob_gs6400``    GaussianFormer-2 Prob-64, the flagship
                        (reference config/prob/nuscenes_gs6400.py)
+  - ``prob_gs12800``   GaussianFormer-2 Prob-128
+  - ``prob_gs25600``   GaussianFormer-2 Prob-256
   - ``gs144000``       GaussianFormer baseline, 144000 anchors
                        (reference config/nuscenes_gs144000.py)
   - ``gs25600_solid``  GaussianFormer NonEmpty, 25600 anchors and the empty
@@ -90,6 +92,11 @@ class GaussianFormerConfig:
     empty_mean: Tuple[float, float, float] = (0.0, 0.0, -1.0)
     empty_scale: Tuple[float, float, float] = (100.0, 100.0, 8.0)
     use_localaggprob: bool = True
+    # per-axis splat radii (the reference's localagg_prob_fast) in place of
+    # the isotropic ones from each Gaussian's largest scale
+    use_localaggprob_fast: bool = False
+    # False: the prob head's threshold label mode (argmax of the normalised
+    # semantics where the occupancy exceeds 0.5, else the empty class)
     combine_geosem: bool = True
     # losses
     ce_weight: float = 10.0
@@ -119,6 +126,18 @@ class GaussianFormerConfig:
     @property
     def occ_resolution(self) -> Tuple[int, int, int]:
         return (self.grid.H, self.grid.W, self.grid.D)
+
+
+def _prob_config(name, num_anchor, random_samples, scale_range,
+                 scale_multiplier) -> GaussianFormerConfig:
+    """A GaussianFormer-2 config: the image lifter's FPS anchors plus
+    random ones, the GMM splat on the 0.5 m grid with the config's box
+    multiplier."""
+    return GaussianFormerConfig(
+        name=name, num_anchor=num_anchor, random_samples=random_samples,
+        scale_range=scale_range,
+        grid=SplatGridSpec(H=200, W=200, D=16, pc_min=PC_RANGE[:3],
+                           grid_size=0.5, scale_multiplier=scale_multiplier))
 
 
 def _v1_config(name, **kw) -> GaussianFormerConfig:
@@ -166,7 +185,12 @@ _TINY_V1 = dict(
                        scale_multiplier=3.0))
 
 _CONFIGS = {
-    "prob_gs6400": GaussianFormerConfig(name="prob_gs6400"),
+    # reference config/prob/nuscenes_gs{6400,12800,25600}.py
+    "prob_gs6400": _prob_config("prob_gs6400", 4000, 2400, (0.01, 3.2), 4.0),
+    "prob_gs12800": _prob_config("prob_gs12800", 6400, 6400, (0.01, 2.5),
+                                 5.0),
+    "prob_gs25600": _prob_config("prob_gs25600", 19200, 6400, (0.01, 1.8),
+                                 4.0),
     "gs144000": _GS144000,
     "gs25600_solid": _GS25600_SOLID,
     "gs144000_tiny": dataclasses.replace(_GS144000, name="gs144000_tiny",

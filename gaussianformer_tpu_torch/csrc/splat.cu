@@ -16,8 +16,12 @@
 //   om     *= 1 - e                 (prob only)
 // then, per point, the label epilogue of the TPU kernel. prob
 // (ops/splat.py::_postprocess_prob + _labels_xla): normalise by the
-// probability sum with the uniform fallback when it is <= 1e-9, combine
-// semantics with the geometry bin (combine_geosem), first-index argmax.
+// probability sum with the uniform fallback when it is <= 1e-9, then by the
+// label mode, a runtime flag: "combine" (splat_kernel.py:190-193) combines
+// semantics with the geometry bin (combine_geosem) and takes the first-index
+// argmax; "threshold" (:194-205) takes the first-index argmax of the C
+// normalised lanes where the occupancy 1 - om exceeds `thresh` (strictly)
+// and `empty_label` elsewhere. The accumulation is the same in both modes.
 // additive (_labels_xla, splat_kernel.py mode "additive"): first-index
 // argmax of the raw sums acc[:C]; a voxel that no box holds is all zeros
 // and gets label 0.
@@ -55,7 +59,8 @@ splat_kernel(const float* __restrict__ pts, int N,
              const float* __restrict__ sem, int P, int C, float pcx,
              float pcy, float pcz, float gs, int GH, int GW, int GD,
              float* __restrict__ acc_out, float* __restrict__ om_out,
-             int* __restrict__ labels) {
+             int* __restrict__ labels, bool threshold, float thresh,
+             int empty_label) {
   extern __shared__ float smem[];
   const int CA = C + 2;
   float* s_g = smem;                                   // [TILE][9]
@@ -192,14 +197,15 @@ splat_kernel(const float* __restrict__ pts, int N,
     for (int c = 0; c < MAXC; ++c) {
       if (c < C) {
         const float logit = covered ? a[c] / denom : (c == C - 1 ? 0.f : uni);
-        const float comb = c == C - 1 ? 1.f - bins : logit * bins;
+        const float comb =
+            threshold ? logit : (c == C - 1 ? 1.f - bins : logit * bins);
         if (comb > best) {
           best = comb;
           lab = c;
         }
       }
     }
-    labels[n] = lab;
+    labels[n] = threshold && !(bins > thresh) ? empty_label : lab;
   }
 }
 
@@ -207,7 +213,8 @@ template <int MAXC, bool PROB>
 int launch(const float* pts, int N, const float* gdata, const int* box,
            const float* sem, int P, int C, const float* pc, float gs, int GH,
            int GW, int GD, float* acc, float* om, int* labels,
-           cudaStream_t st) {
+           cudaStream_t st, bool threshold = false, float thresh = 0.f,
+           int empty_label = 0) {
   const size_t smem = (size_t)TILE * (9 + 6 + C + 2) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       splat_kernel<MAXC, PROB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -216,7 +223,7 @@ int launch(const float* pts, int N, const float* gdata, const int* box,
   const int blocks = (N + TILE - 1) / TILE;
   splat_kernel<MAXC, PROB><<<blocks, TILE, smem, st>>>(
       pts, N, gdata, box, sem, P, C, pc[0], pc[1], pc[2], gs, GH, GW, GD,
-      acc, om, labels);
+      acc, om, labels, threshold, thresh, empty_label);
   return (int)cudaGetLastError();
 }
 
@@ -226,23 +233,26 @@ int launch(const float* pts, int N, const float* gdata, const int* box,
 // [xx, yy, zz, xy, yz, xz]); box [P, 6] int32 (voxel lo xyz, hi xyz);
 // sem_aug [P, C + 2] fp32; pc_min: 3 host floats; voxel grid (GH, GW, GD)
 // of edge `gs`. Outputs acc [N, C + 2], one_minus [N], labels [N] int32
-// (or null). Returns a cudaError_t, or -1 for C outside 2..32.
+// (or null). `label_mode` 0 ("combine") or 1 ("threshold", with `thresh`
+// and `empty_label`). Returns a cudaError_t, or -1 for C outside
+// 2..32 or an unknown mode.
 GF_EXPORT int gf_splat_forward(const void* pts, int N, const void* gdata,
                                const void* box, const void* sem_aug, int P,
                                int C, const float* pc_min, float gs, int GH,
                                int GW, int GD, void* acc, void* one_minus,
-                               void* labels, void* stream) {
+                               void* labels, int label_mode, float thresh,
+                               int empty_label, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (C < 2 || C > 32) return -1;
+  if (C < 2 || C > 32 || label_mode < 0 || label_mode > 1) return -1;
   if (C == 18)
     return launch<18, true>((const float*)pts, N, (const float*)gdata,
                       (const int*)box, (const float*)sem_aug, P, C, pc_min,
                       gs, GH, GW, GD, (float*)acc, (float*)one_minus,
-                      (int*)labels, st);
+                      (int*)labels, st, label_mode == 1, thresh, empty_label);
   return launch<32, true>((const float*)pts, N, (const float*)gdata,
                     (const int*)box, (const float*)sem_aug, P, C, pc_min, gs,
                     GH, GW, GD, (float*)acc, (float*)one_minus, (int*)labels,
-                    st);
+                    st, label_mode == 1, thresh, empty_label);
 }
 
 // The additive variant: sem_aug [P, C + 2] = (sem * opa, opa, 1); outputs

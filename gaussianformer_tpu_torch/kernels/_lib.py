@@ -5,7 +5,10 @@ one shared library with a plain C interface, which is loaded with
 ``ctypes``: one ``nvcc -c`` per source, all started together, then one
 link. The library name carries a hash of the sources and flags, so an edit
 rebuilds and a stale build is never loaded. The build goes to
-``gaussianformer_tpu_torch/_build/`` (listed in ``.gitignore``).
+``gaussianformer_tpu_torch/_build/`` (listed in ``.gitignore``). Processes
+that start at once (test workers, a script beside them) build one at a
+time: an ``flock`` on ``_build/build.lock`` is held from the check for the
+library to its link, so no process compiles over another's objects.
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), so a run can show which kernels its path went
@@ -14,6 +17,7 @@ through.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -73,6 +77,20 @@ def build() -> Path:
     if lib_path.exists():
         BUILD_LOG = log_path.read_text() if log_path.exists() else ""
         return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        # released when the file closes, or when a killed process's does
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib_path.exists():
+            _compile_and_link(sources, lib_path, log_path)
+    BUILD_LOG = log_path.read_text() if log_path.exists() else ""
+    return lib_path
+
+
+def _compile_and_link(sources, lib_path: Path, log_path: Path):
+    """One ``nvcc -c`` per source, all started together, then the link
+    into a per-process file that is renamed onto ``lib_path``. Called
+    with the build lock held."""
     nvcc = _nvcc()
     obj_dir = BUILD_DIR / f"obj_{lib_path.stem}"
     obj_dir.mkdir(parents=True, exist_ok=True)
@@ -89,9 +107,9 @@ def build() -> Path:
         logs.append(f"== {src.name}\n{out}")
         if proc.returncode != 0:
             failed.append(src.name)
-    BUILD_LOG = "\n".join(logs)
+    log = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n{BUILD_LOG}")
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
     tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
     link = subprocess.run(
         [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -99,9 +117,8 @@ def build() -> Path:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    log_path.write_text(BUILD_LOG)
+    log_path.write_text(log)
     os.replace(tmp, lib_path)
-    return lib_path
 
 
 def lib() -> ctypes.CDLL:
@@ -130,7 +147,7 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.gf_deformable_forward.restype = I
     so.gf_splat_forward.argtypes = [P, I, P, P, P, I, I,
                                     ctypes.POINTER(F), F, I, I, I,
-                                    P, P, P, P]
+                                    P, P, P, I, F, I, P]
     so.gf_splat_forward.restype = I
     so.gf_dcn_backward.argtypes = [P, P, I, P, I, P, P, P, P, P, P,
                                    I, I, I, I, I, P]

@@ -20,9 +20,12 @@ AABB, ``sem_aug`` [P, C + 2] = (sem * w, w, 1), with w = (2 pi)^-1.5
 sqrt(det A) opa for ``prob`` and w = opa for ``additive``. Outputs per
 point: ``acc`` [N, C + 2] (semantic sums, sum of w e, density),
 ``one_minus`` [N] = prod(1 - e) (``prob``; None for ``additive``) and
-``labels`` [N] int32: combine_geosem's argmax for ``prob``, the first-index
-argmax of the raw sums for ``additive`` (0 where no box holds the voxel).
-``grid`` is an ``ops.splat.SplatGridSpec``.
+``labels`` [N] int32: for ``prob`` by one of two label modes (keyword
+``label_mode``; a mode of the epilogue, not a splat variant), combine_geosem's
+argmax (``"combine"``) or the normalised semantics' argmax where the
+occupancy exceeds ``thresh`` and ``empty_label`` elsewhere (``"threshold"``);
+for ``additive`` the first-index argmax of the raw sums (0 where no box
+holds the voxel). ``grid`` is an ``ops.splat.SplatGridSpec``.
 """
 from __future__ import annotations
 
@@ -57,29 +60,47 @@ def combine_geosem(logits, bins):
 
 
 VARIANTS = ("prob", "additive")
+LABEL_MODES = ("combine", "threshold")
 
 
-def _check_variant(variant: str):
+def _check_variant(variant: str, label_mode: str = "combine"):
     if variant not in VARIANTS:
         raise ValueError(f"splat variant {variant!r} is not one of "
                          f"{VARIANTS}")
+    if label_mode not in LABEL_MODES:
+        raise ValueError(f"label mode {label_mode!r} is not one of "
+                         f"{LABEL_MODES}")
+    if variant == "additive" and label_mode != "combine":
+        raise ValueError("the additive splat has one label rule: pass no "
+                         "label_mode")
 
 
-def labels_from_acc(acc, one_minus=None):
-    """Final-occ labels [N] int32 from acc [N, C + 2]. With ``one_minus``
-    [N] (prob): normalise, combine_geosem, first-index argmax. Without
-    (additive): first-index argmax of the raw sums."""
+def labels_from_acc(acc, one_minus=None, mode: str = "combine",
+                    thresh: float = 0.5, empty_label: int = 17):
+    """Final-occ labels [N] int32 from acc [N, C + 2], all first-index
+    argmaxes. With ``one_minus`` [N] (prob) the semantics are normalised
+    (uniform fallback) and ``mode`` picks the rule: ``"combine"``, the
+    argmax of combine_geosem; ``"threshold"``, the argmax of the C
+    normalised lanes where 1 - one_minus > ``thresh`` (strictly), else
+    ``empty_label``. Without (additive): the argmax of the raw sums."""
     if one_minus is None:
         return torch.argmax(acc[:, :-2], dim=-1).to(torch.int32)
     logits, bins, _ = postprocess_prob(acc, one_minus)
-    return torch.argmax(combine_geosem(logits, bins), dim=-1).to(torch.int32)
+    if mode == "combine":
+        return torch.argmax(combine_geosem(logits, bins),
+                            dim=-1).to(torch.int32)
+    sem = torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.where(bins > thresh, sem,
+                       torch.full_like(sem, empty_label))
 
 
 def splat_accumulate_plain(points, gdata, box, sem_aug, grid,
-                           variant: str = "prob", chunk_n: int = 65536,
+                           variant: str = "prob", *,
+                           label_mode: str = "combine", thresh: float = 0.5,
+                           empty_label: int = 17, chunk_n: int = 65536,
                            chunk_g: int = 128):
     """Dense (point-chunk x Gaussian-chunk) blocks; fp32 throughout."""
-    _check_variant(variant)
+    _check_variant(variant, label_mode)
     prob = variant == "prob"
     n = points.shape[0]
     p = gdata.shape[0]
@@ -107,13 +128,16 @@ def splat_accumulate_plain(points, gdata, box, sem_aug, grid,
             acc[n0:n0 + chunk_n] += e @ sem_aug[g0:g0 + chunk_g]
             if prob:
                 one_minus[n0:n0 + chunk_n] *= torch.prod(1.0 - e, dim=1)
-    return acc, one_minus, labels_from_acc(acc, one_minus)
+    return acc, one_minus, labels_from_acc(acc, one_minus, label_mode, thresh,
+                                           empty_label)
 
 
 def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
-                          variant: str = "prob"):
+                          variant: str = "prob", *,
+                          label_mode: str = "combine", thresh: float = 0.5,
+                          empty_label: int = 17):
     """Launch ``csrc/splat.cu``: one block of 256 points per tile."""
-    _check_variant(variant)
+    _check_variant(variant, label_mode)
     name = "splat_accumulate"
     _lib.require_cuda(name, points=points, gdata=gdata, box=box,
                       sem_aug=sem_aug)
@@ -144,20 +168,23 @@ def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
         points.data_ptr(), n, gdata.data_ptr(), box.data_ptr(),
         sem_aug.data_ptr(), p, ca - 2, pc, float(grid.grid_size),
         grid.H, grid.W, grid.D, acc.data_ptr(), one_minus.data_ptr(),
-        labels.data_ptr(), _lib.stream_ptr(points))
+        labels.data_ptr(), int(label_mode == "threshold"), float(thresh),
+        int(empty_label), _lib.stream_ptr(points))
     _lib.check(code, name)
     _lib.LAUNCHES["splat"] += 1
     return acc, one_minus, labels
 
 
 def splat_accumulate(points, gdata, box, sem_aug, grid,
-                     variant: str = "prob"):
+                     variant: str = "prob", **labels):
     """Splat accumulators and labels: the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors."""
+    the CUDA kernel for CUDA tensors. ``labels``: the prob label mode's
+    keywords (``label_mode``, ``thresh``, ``empty_label``)."""
     if points.device.type == "cpu":
         return splat_accumulate_plain(points, gdata, box, sem_aug, grid,
-                                      variant)
-    return splat_accumulate_cuda(points, gdata, box, sem_aug, grid, variant)
+                                      variant, **labels)
+    return splat_accumulate_cuda(points, gdata, box, sem_aug, grid, variant,
+                                 **labels)
 
 
 NORM_3D = (2.0 * math.pi) ** -1.5

@@ -5,15 +5,18 @@ layers' Gaussians are splatted to the voxel grid (kernels K4 / K7);
 layer.
 
 - prob (``use_localaggprob``, GaussianFormer-2): softmax semantics with a
-  zero empty channel, the GMM splat, ``pred_occ`` composed with
-  combine_geosem, plus ``bin_logits`` and ``density``.
+  zero empty channel, the GMM splat, plus ``bin_logits`` and ``density``.
+  With ``combine_geosem`` ``pred_occ`` is combine_geosem's composition and
+  the labels its argmax; without (the threshold label mode) ``pred_occ`` is
+  the normalised semantics and a voxel is labelled their argmax where its
+  occupancy ``bin_logits`` exceeds ``sigmoid_thresh``, else empty.
 - additive (the v1 models): the semantics as the refinement left them, the
   additive splat, ``pred_occ`` its raw sums. ``with_empty`` appends one
   large fixed Gaussian that carries the learnable ``empty_scalar`` on the
   empty class; a prediction without opacities is splatted with ones.
 
-The threshold label mode (``combine_geosem=False`` with the prob splat) is
-not ported."""
+``per_axis_radii`` (the reference's localagg_prob_fast) sizes each box by
+the Gaussian's scale on each axis rather than by its largest."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -56,15 +59,18 @@ class GaussianHead(nn.Module):
                  empty_mean=(0.0, 0.0, -1.0),
                  empty_scale=(100.0, 100.0, 8.0),
                  use_localaggprob: bool = True,
-                 combine_geosem: bool = True):
+                 combine_geosem: bool = True, sigmoid_thresh: float = 0.5,
+                 per_axis_radii: bool = False):
         super().__init__()
-        if use_localaggprob and not combine_geosem:
-            raise NotImplementedError("the threshold label mode of the "
-                                      "prob head")
         self.grid = grid
         self.apply_loss_type = apply_loss_type
         self.with_empty = with_empty
         self.use_localaggprob = use_localaggprob
+        self.combine_geosem = combine_geosem
+        self.per_axis_radii = per_axis_radii
+        self.labels = dict(
+            label_mode="combine" if combine_geosem else "threshold",
+            thresh=sigmoid_thresh, empty_label=empty_label)
         if with_empty:
             self.empty_scalar = nn.Parameter(torch.full((1,), 10.0))
             f32 = dict(dtype=torch.float32)
@@ -121,13 +127,16 @@ class GaussianHead(nn.Module):
         for idx in layers:
             args = self.prepare_gaussian_args(representation[idx])
             if self.use_localaggprob:
-                logits, bins, dens, labels = splat_prob(points, *args,
-                                                        self.grid)
-                pred.append(combine_geosem(logits, bins))
+                logits, bins, dens, labels = splat_prob(
+                    points, *args, self.grid, self.per_axis_radii,
+                    **self.labels)
+                pred.append(combine_geosem(logits, bins)
+                            if self.combine_geosem else logits)
                 bin_logits.append(bins)
                 density.append(dens)
             else:
-                logits, labels = splat_additive(points, *args, self.grid)
+                logits, labels = splat_additive(points, *args, self.grid,
+                                                self.per_axis_radii)
                 pred.append(logits)
         out = {
             "pred_occ": pred,

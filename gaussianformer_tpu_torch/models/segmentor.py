@@ -89,7 +89,8 @@ class BEVSegmentor(nn.Module):
             empty_label=cfg.empty_label, with_empty=cfg.with_empty,
             empty_mean=cfg.empty_mean, empty_scale=cfg.empty_scale,
             use_localaggprob=cfg.use_localaggprob,
-            combine_geosem=cfg.combine_geosem)
+            combine_geosem=cfg.combine_geosem,
+            per_axis_radii=cfg.use_localaggprob_fast)
 
     def forward(self, imgs, projection_mat, image_wh, occ_xyz=None,
                 occ_label=None, occ_cam_mask=None, *,

@@ -51,12 +51,17 @@ class SplatGridSpec:
         idx = torch.floor((xyz - pc_min) / self.grid_size).long()
         return torch.minimum(idx.clamp_min(0), hi)
 
-    def radii(self, scales):
-        """Isotropic voxel-space AABB radii (localagg_prob) from the
-        Gaussians' largest scale."""
-        r = torch.ceil(scales.detach().amax(-1, keepdim=True)
-                       * self.scale_multiplier / self.grid_size)
-        return r.expand(scales.shape).long().clamp_min(self.radii_min)
+    def radii(self, scales, per_axis: bool = False):
+        """Voxel-space AABB radii [P, 3] from the (detached) scales:
+        ceil(scale * scale_multiplier / grid_size) of each axis
+        (``per_axis``, the reference's localagg_prob_fast) or of the
+        largest scale on all three (localagg_prob), at least
+        ``radii_min``."""
+        s = scales.detach()
+        if not per_axis:
+            s = s.amax(-1, keepdim=True).expand(scales.shape)
+        r = torch.ceil(s * self.scale_multiplier / self.grid_size)
+        return r.long().clamp_min(self.radii_min)
 
 
 def det_compact(cov6):
@@ -67,13 +72,15 @@ def det_compact(cov6):
 
 
 def pack_gaussians(means, opacities, semantics, scales, cov_inv6,
-                   grid: SplatGridSpec, variant: str = "prob"):
+                   grid: SplatGridSpec, variant: str = "prob",
+                   per_axis: bool = False):
     """One batch element's Gaussian tables for kernel K4 (the packing math
     of the JAX package's ``_pack_gaussians``): gdata [P, 9], box [P, 6]
-    int32 (AABB lo, hi in voxels), sem_aug [P, C + 2] = [sem w, w, 1] with
-    w = (2 pi)^-1.5 sqrt(det A) opa (prob) or w = opa (additive)."""
+    int32 (AABB lo, hi in voxels, with isotropic or ``per_axis`` radii),
+    sem_aug [P, C + 2] = [sem w, w, 1] with w = (2 pi)^-1.5 sqrt(det A) opa
+    (prob) or w = opa (additive)."""
     mu_int = grid.voxelize(means.detach())
-    rad = grid.radii(scales)
+    rad = grid.radii(scales, per_axis)
     box = torch.cat([mu_int - rad, mu_int + rad], dim=-1).to(torch.int32)
     gdata = torch.cat([means, cov_inv6], dim=-1).float().contiguous()
     w = opacities
@@ -87,16 +94,19 @@ def pack_gaussians(means, opacities, semantics, scales, cov_inv6,
 class SplatProbFunction(torch.autograd.Function):
     """One batch element's prob splat: K4 forward, which saves the logits,
     the probability sums and ``one_minus`` (as ``f_fwd`` does); K7
-    backward on the per-voxel cotangents prepared here. Returns (logits
-    [N, C], bin_logits [N], density [N], labels [N] int32)."""
+    backward on the per-voxel cotangents prepared here. ``labels`` is the
+    keyword dict of K4's label epilogue (``label_mode``, ``thresh``,
+    ``empty_label``). Returns (logits [N, C], bin_logits [N], density [N],
+    labels [N] int32)."""
 
     @staticmethod
     def forward(ctx, means, opacities, semantics, cov_inv6, points, scales,
-                grid):
+                grid, per_axis, labels):
         gdata, box, sem_aug = pack_gaussians(means, opacities, semantics,
-                                             scales, cov_inv6, grid)
+                                             scales, cov_inv6, grid,
+                                             per_axis=per_axis)
         acc, one_minus, labels = splat_accumulate(points, gdata, box,
-                                                  sem_aug, grid)
+                                                  sem_aug, grid, **labels)
         logits, bins, density = postprocess_prob(acc, one_minus)
         c = semantics.shape[-1]
         ctx.grid = grid
@@ -119,7 +129,7 @@ class SplatProbFunction(torch.autograd.Function):
         gmu, gopa, gsem, gcov = splat_backward(
             points, gdata, opa.float().contiguous(),
             sem.float().contiguous(), box, gl, scalars, ctx.grid)
-        return gmu, gopa, gsem, gcov, None, None, None
+        return gmu, gopa, gsem, gcov, None, None, None, None, None
 
 
 class SplatAdditiveFunction(torch.autograd.Function):
@@ -130,9 +140,10 @@ class SplatAdditiveFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means, opacities, semantics, cov_inv6, points, scales,
-                grid):
+                grid, per_axis):
         gdata, box, sem_aug = pack_gaussians(
-            means, opacities, semantics, scales, cov_inv6, grid, "additive")
+            means, opacities, semantics, scales, cov_inv6, grid, "additive",
+            per_axis)
         acc, _, labels = splat_accumulate(points, gdata, box, sem_aug, grid,
                                           "additive")
         ctx.grid = grid
@@ -147,35 +158,43 @@ class SplatAdditiveFunction(torch.autograd.Function):
             points, gdata, opa.float().contiguous(),
             sem.float().contiguous(), box, g_logits.float().contiguous(),
             None, ctx.grid, "additive")
-        return gmu, gopa, gsem, gcov, None, None, None
+        return gmu, gopa, gsem, gcov, None, None, None, None
 
 
 def _splat_batched(function, n_out, points, means, opacities, semantics,
-                   scales, cov_inv6, grid):
+                   scales, cov_inv6, grid, *extra):
     outs = [function.apply(
         means[bi], opacities[bi], semantics[bi], cov_inv6[bi],
-        points[bi].float().contiguous(), scales[bi], grid)
+        points[bi].float().contiguous(), scales[bi], grid, *extra)
         for bi in range(points.shape[0])]
     return tuple(torch.stack([o[k] for o in outs]) for k in range(n_out))
 
 
 def splat_additive(points, means, opacities, semantics, scales, cov_inv6,
-                   grid: SplatGridSpec):
+                   grid: SplatGridSpec, per_axis: bool = False):
     """Batched additive splat with final-occ labels, differentiable in
     ``means``, ``opacities``, ``semantics`` and ``cov_inv6``. Shapes as
     :func:`splat_prob`. Returns (logits [B, N, C], labels [B, N] int32):
     the raw sums and their first-index argmax."""
     return _splat_batched(SplatAdditiveFunction, 2, points, means,
-                          opacities, semantics, scales, cov_inv6, grid)
+                          opacities, semantics, scales, cov_inv6, grid,
+                          per_axis)
 
 
 def splat_prob(points, means, opacities, semantics, scales, cov_inv6,
-               grid: SplatGridSpec):
+               grid: SplatGridSpec, per_axis: bool = False,
+               label_mode: str = "combine", thresh: float = 0.5,
+               empty_label: int = 17):
     """Batched prob splat with final-occ labels, differentiable in
     ``means``, ``opacities``, ``semantics`` and ``cov_inv6``.
 
     points [B, N, 3]; means [B, P, 3]; opacities [B, P]; semantics
-    [B, P, C]; scales [B, P, 3]; cov_inv6 [B, P, 6]. Returns (logits
+    [B, P, C]; scales [B, P, 3]; cov_inv6 [B, P, 6]. ``per_axis``: box
+    radii per axis; ``label_mode``, ``thresh``, ``empty_label``: K4's
+    label epilogue (``kernels.splat.labels_from_acc``). Returns (logits
     [B, N, C], bin_logits [B, N], density [B, N], labels [B, N] int32)."""
+    labels = dict(label_mode=label_mode, thresh=thresh,
+                  empty_label=empty_label)
     return _splat_batched(SplatProbFunction, 4, points, means, opacities,
-                          semantics, scales, cov_inv6, grid)
+                          semantics, scales, cov_inv6, grid, per_axis,
+                          labels)

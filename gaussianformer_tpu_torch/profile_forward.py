@@ -2,7 +2,8 @@
 GPU.
 
     python -m gaussianformer_tpu_torch.profile_forward \
-        [--config prob_gs6400] [--frames 3] [--train]
+        [--config prob_gs6400|prob_gs12800|prob_gs25600|gs25600_solid|...]
+        [--frames 3] [--train]
 
 Runs the config's full-width forward under inference mode (random weights
 from seed 0, the synthetic batch at the config's input size) or, with

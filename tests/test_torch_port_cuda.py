@@ -2,8 +2,10 @@
 card, at small shapes with the edge cases the flagship path does not
 reach: DCN offsets of several pixels (corners outside the image and, in
 the backward, outside the kernel's shared-memory g_x window), masked
-and exhausted FPS, fp32 deformable features, a splat with sparse and dense
-coverage, the additive splat with the v1 head's whole-grid Gaussian; and
+and exhausted FPS and FPS to Prob-256's 19,200 anchors, fp32 deformable
+features, a splat with sparse and dense coverage, with per-axis boxes and
+with the threshold label mode, the additive splat with the v1 head's
+whole-grid Gaussian; and
 the backward kernels K5-K7 against their plain backward versions on random
 cotangents. Marked ``cuda``; they skip on a host
 without a CUDA device. On the card (``--noconftest``: tests/conftest.py
@@ -70,6 +72,18 @@ def test_fps_kernel_matches_plain(gen, case):
     assert torch.equal(got, ref)
 
 
+def test_fps_kernel_at_prob_gs25600_size(gen):
+    """Prob-256's lifter: 19,200 selections from 129,600 candidates
+    (6 cameras x 108 x 200 pixels), a fifth of them masked out; the
+    indices equal."""
+    n, k = 129_600, 19_200
+    pts = randn(gen, n, 3) * torch.tensor([25.0, 25.0, 2.0], device="cuda")
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.2
+    got = fps.farthest_point_sampling_cuda(pts, k, valid)
+    ref = fps.farthest_point_sampling_plain(pts, k, valid)
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_deformable_kernel_matches_plain(gen, dtype):
     b, cams, c, g, k, p = 2, 3, 128, 4, 5, 300
@@ -104,14 +118,42 @@ def _splat_case(gen):
     return grid, pts, means, opa, sem, scales, cov6
 
 
-def test_splat_kernel_matches_plain(gen):
+@pytest.mark.parametrize("per_axis", [False, True])
+def test_splat_kernel_matches_plain(gen, per_axis):
     grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
-    tables = pack_gaussians(means, opa, sem, scales, cov6, grid)
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid,
+                            per_axis=per_axis)
     got = splat.splat_accumulate_cuda(pts, *tables, grid)
     ref = splat.splat_accumulate_plain(pts, *tables, grid)
     assert (got[0] - ref[0]).abs().max() <= 1e-4 * ref[0].abs().max()
     assert (got[1] - ref[1]).abs().max() <= 1e-4
     assert (got[2] == ref[2]).float().mean() >= 0.999
+
+
+def test_splat_threshold_labels_match_plain(gen):
+    """K4's threshold label epilogue: the same sums as the combine mode,
+    and labels equal to the plain version's except where the plain
+    occupancy is within 1e-6 of the threshold, or above it with a top-two
+    gap of the normalised semantics below 1e-6 (sums in another order may
+    flip those). The case is dense, so the threshold is 0.95: a quarter of
+    the voxels fall below it."""
+    grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid)
+    thresh = 0.95
+    kw = dict(label_mode="threshold", thresh=thresh, empty_label=17)
+    got = splat.splat_accumulate_cuda(pts, *tables, grid, **kw)
+    ref = splat.splat_accumulate_plain(pts, *tables, grid, **kw)
+    comb = splat.splat_accumulate_cuda(pts, *tables, grid)
+    assert torch.equal(got[0], comb[0]) and torch.equal(got[1], comb[1])
+    assert (got[0] - ref[0]).abs().max() <= 1e-4 * ref[0].abs().max()
+    logits, bins, _ = splat.postprocess_prob(ref[0], ref[1])
+    top = logits.topk(2, dim=-1).values
+    near = ((bins - thresh).abs() < 1e-6) | (
+        (bins > thresh) & (top[:, 0] - top[:, 1] < 1e-6))
+    assert near.float().mean() < 1e-3
+    assert torch.equal(got[2][~near], ref[2][~near])
+    assert 0.05 < (got[2] == 17).float().mean() < 0.95
+    assert not torch.equal(got[2], comb[2])
 
 
 def _close(got, ref, tol, name):
@@ -207,11 +249,13 @@ def test_deformable_backward_kernel_matches_plain(gen, dtype):
     _close(got[2], ref[2], SUM_TOL, "g_weights")
 
 
-def test_splat_backward_kernel_matches_plain(gen):
+@pytest.mark.parametrize("per_axis", [False, True])
+def test_splat_backward_kernel_matches_plain(gen, per_axis):
     """K7 on random per-voxel cotangents; and the wrapper refuses points
     that are not the raster grid."""
     grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
-    gdata, box, _ = pack_gaussians(means, opa, sem, scales, cov6, grid)
+    gdata, box, _ = pack_gaussians(means, opa, sem, scales, cov6, grid,
+                                   per_axis=per_axis)
     n, c = pts.shape[0], sem.shape[1]
     gl = randn(gen, n, c)
     scalars = randn(gen, n, 3)

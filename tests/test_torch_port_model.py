@@ -43,7 +43,8 @@ def jax_tiny_segmentor(cfg=TINY):
         num_depth_samples=cfg.num_depth_samples,
         num_learnable_pts=cfg.num_learnable_pts,
         compute_dtype=cfg.compute_dtype, attn_drop=cfg.attn_drop,
-        ffn_drop=cfg.ffn_drop)
+        ffn_drop=cfg.ffn_drop, combine_geosem=cfg.combine_geosem,
+        use_localaggprob_fast=cfg.use_localaggprob_fast)
     seg = jcfg.segmentor_cfg()
     towers = dict(depth=cfg.depth, base_channels=cfg.base_channels,
                   stage_with_dcn=cfg.stage_with_dcn)

@@ -191,19 +191,23 @@ def test_v1_conversion_places_every_leaf(name):
 
 
 def test_list_configs_and_full_width_values():
-    """The port's config names, and the v1 configs' values against the JAX
-    package's, field by field where both have the field."""
+    """The port's config names, and the five full-width configs' values
+    against the JAX package's, field by field where both have the field,
+    the splat grid (box multiplier included) against ``splat_grid()``."""
+    names = ("prob_gs6400", "prob_gs12800", "prob_gs25600", "gs144000",
+             "gs25600_solid")
     assert list_configs() == sorted(list_configs())
-    assert {"prob_gs6400", "gs144000", "gs25600_solid"} <= set(list_configs())
-    for name in ("gs144000", "gs25600_solid"):
+    assert set(names) <= set(list_configs())
+    for name in names:
         cfg, jcfg = get_config(name), jax_get_config(name)
         for f in dataclasses.fields(cfg):
             if f.name in ("optim", "grid") or not hasattr(jcfg, f.name):
                 continue
-            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), \
+                (name, f.name)
         assert dataclasses.asdict(cfg.optim) == dataclasses.asdict(jcfg.optim)
         jg = jcfg.splat_grid()
-        assert dataclasses.asdict(cfg.grid) == dataclasses.asdict(jg)
+        assert dataclasses.asdict(cfg.grid) == dataclasses.asdict(jg), name
         assert cfg.operation_order == jcfg.operation_order
         assert cfg.total_anchors == jcfg.total_anchors
 
