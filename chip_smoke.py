@@ -19,7 +19,10 @@ Phases (each raises on failure, so the script exits nonzero):
             share;
 3. kernels  each forward kernel against its plain PyTorch version on the
             captured inputs, with its tolerance; kernel, plain and bound
-            times;
+            times; for K1 also cuDNN's dense bf16 3x3 conv of the same
+            shape (conv_ms, a yardstick of the GEMM), for K2 its time a
+            selection and its latency floor (the per-step exchange alone,
+            as many steps over no points);
 4. small    the tiny config's forward on the GPU (towers without DCN,
             fp32) against the same model run on the CPU;
 5. train    the full-width train step (forward with dropout, losses,
@@ -251,6 +254,10 @@ def main() -> int:
             rows.append(check_kernel(key, captured(fwd["calls"], key),
                                      fwd["launches"], mods))
     del fwd["calls"]
+    # K1's stage-4 numbers ride on its stage-3 row
+    k1 = {r["shape"][3]: r for r in rows if r["name"] == "deform_conv2d"}
+    k1[256]["stage4"] = {k: k1[512][k] for k in (
+        "shape", "ms", "conv_ms", "bound_ms", "max_abs_err")}
 
     # ---- 4. the tiny config end to end, GPU against CPU
     check_small("prob_gs6400_tiny", get_config, build_segmentor,
@@ -606,6 +613,7 @@ def check_kernel(key, call, launches, mods, tag=""):
     (``report`` False for the stage-4 DCN shape, printed but folded into
     the one K1 row, which is measured at the stage-3 shape). ``tag``: the
     config whose shapes these are, where not the flagship's."""
+    import torch
     dcn, fps, deformable, splat = (mods.dcn, mods.fps, mods.deformable,
                                    mods.splat)
     fn, args, kw = call
@@ -625,6 +633,13 @@ def check_kernel(key, call, launches, mods, tag=""):
         tol = 2.0 ** -6 * scale
         ms = cuda_ms(lambda: fn(*args), 20)
         plain_ms = cuda_ms(lambda: dcn.deform_conv2d_plain(*args), 2)
+        # cuDNN's dense bf16 3x3 conv of the same shape, channels-last: the
+        # GEMM's time without the sampling (a yardstick, not the function)
+        xc = x.permute(0, 3, 1, 2)
+        wc = weight.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+            xc, wc, padding=1), 20)
         flops = 2.0 * b * h * w * 9 * cin * cout
         nbytes = (x.numel() * 2 + b * h * w * 27 * 4 + weight.numel() * 2
                   + 2 * cout * 4 + b * h * w * cout * 2)
@@ -632,7 +647,7 @@ def check_kernel(key, call, launches, mods, tag=""):
                    source="gaussianformer_tpu_torch/csrc/dcn.cu",
                    replaces="gaussianformer_tpu/ops/pallas/dcn_kernel.py:206",
                    launches=launches["dcn"], shape=[b, h, w, cin, cout],
-                   report=cin == 256)
+                   conv_ms=conv_ms, report=cin == 256)
     elif name == "fps":
         points, num_samples = args[0], args[1]
         got = fn(*args)
@@ -641,6 +656,10 @@ def check_kernel(key, call, launches, mods, tag=""):
         err = float((got != ref).sum().item())   # indices must be equal
         tol = 0.0
         ms = cuda_ms(lambda: fn(*args), 5)
+        # the latency floor: the kernel's per-step exchange alone, run as
+        # many times over no points
+        floor_ms = cuda_ms(lambda: fps.fps_step_floor_cuda(
+            num_samples, points.device), 5)
         n = points.shape[0]
         flops = float(num_samples) * n * 9        # 3 sub, 3 mul, 2 add, min
         nbytes = n * 12 + num_samples * 4
@@ -648,6 +667,8 @@ def check_kernel(key, call, launches, mods, tag=""):
                    source="gaussianformer_tpu_torch/csrc/fps.cu",
                    replaces="gaussianformer_tpu/ops/pallas/fps_kernel.py:56",
                    launches=launches["fps"], shape=[n, num_samples],
+                   us_per_step=ms * 1e3 / num_samples, floor_ms=floor_ms,
+                   floor_us_per_step=floor_ms * 1e3 / num_samples,
                    report=True)
     elif name == "deformable":
         feats, pts, wts, num_pts = args
@@ -757,9 +778,16 @@ def check_kernel(key, call, launches, mods, tag=""):
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                library_ms=None)
+    extra = ""
+    if name == "dcn":
+        extra = f", cuDNN dense conv {row['conv_ms']:.4f} ms"
+    elif name == "fps":
+        extra = (f"; {row['us_per_step']:.4f} us a selection, latency floor "
+                 f"{row['floor_ms']:.4f} ms ({row['floor_us_per_step']:.4f} "
+                 f"us a step)")
     log(f"# {row['name']} {row['shape']}: max_abs_err {err:.3e} "
         f"(tol {tol:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){extra}")
     if not err <= tol:
         raise RuntimeError(f"{row['name']} disagrees with its plain "
                            f"version: {err} > {tol}")

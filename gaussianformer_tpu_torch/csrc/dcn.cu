@@ -18,42 +18,47 @@
 // bf16 (about 39 us at 989 TFLOP/s), while the bytes it must move are a few
 // tens of MB (about 10 us at 3.35 TB/s).
 //
-// Design: a fused implicit GEMM. A block owns BM output pixels x BN output
-// channels. For each tap it computes the four bilinear corner indices and
-// mask-scaled weights of its pixels once, then for each BK-channel chunk
-// samples the A tile straight from x (NHWC, 16-byte channel-contiguous
-// loads) into shared memory, stages the matching weight tile, and runs
-// bf16 tensor-core MMAs (nvcuda::wmma, fp32 accumulation). The epilogue
-// applies inv/shift + ReLU in registers and writes bf16. The sampled tile
-// never touches device memory, which is what keeps the op compute bound.
-// The simple single-buffered loop leaves tensor cores idle while a tile is
-// sampled; pipelining and wgmma are the next steps.
-#include <mma.h>
-
+// Design: a fused implicit GEMM on bf16 mma.sync.m16n8k16 (fp32 sums) fed
+// by ldmatrix (helpers in mma.cuh, shared with K5). A block of 256 threads
+// owns BM = 64 output pixels x BN = 256 output channels: all of C_out up
+// to 256, so each (pixel, tap, channel) sample is made once a call (C_out
+// 512 takes two column blocks). The K loop walks the 9 taps, each in
+// BK = 32-channel steps:
+//  - W streams through a cp.async ring of STAGES slices [32 x 256], the
+//    next two in flight under the current MMAs;
+//  - each thread samples one (pixel, 8 channels) entry of the A tile per
+//    step. It computes its pixel's corners once a tap (the tap's offsets
+//    are loaded a tap ahead) and loads the next step's four corner vectors
+//    into registers before the current step's MMAs, blending them into the
+//    other A buffer after them, so the gather latency hides under the
+//    tensor cores (K5's weight launch does the same);
+//  - one __syncthreads a step.
+// The epilogue applies inv/shift + ReLU to the fp32 sums in registers,
+// rounds to bf16 once, and stages the tile through shared memory for
+// 16-byte stores. Two blocks fit on an SM (128 registers a thread, 61 KB of
+// shared memory each).
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "mma.cuh"
 
 namespace {
 
+using namespace gf;
+
 constexpr int BM = 64;          // output pixels per block
-constexpr int BN = 128;         // output channels per block
-constexpr int BK = 64;          // input channels per K step
-constexpr int THREADS = 256;    // 8 warps as 2 (M) x 4 (N), 32x32 each
+constexpr int BN = 256;         // output channels per block
+constexpr int BK = 32;          // input channels per K step
+constexpr int THREADS = 256;    // 8 warps as 2 (M) x 4 (N), 32 x 64 each
+constexpr int STAGES = 3;       // W slices in the ring
 constexpr int A_LD = BK + 8;    // bf16 row pitch of the A tile
-constexpr int B_LD = BN + 8;    // bf16 row pitch of the B tile
-constexpr int C_LD = BN + 4;    // fp32 row pitch of the output staging
+constexpr int W_LD = BN + 8;    // bf16 row pitch of a W slice
+constexpr int C_LD = BN + 8;    // bf16 row pitch of the output staging
+constexpr int SMEM_W = STAGES * BK * W_LD * 2;
+constexpr int SMEM_A = 2 * BM * A_LD * 2;
+constexpr int SMEM = SMEM_W + SMEM_A;  // 60,928 bytes
+static_assert(BM * C_LD * 2 <= SMEM, "the output staging fits the ring");
+static_assert(BM * (BK / 8) == THREADS, "one A entry a thread a step");
 
-struct MainTiles {
-  __nv_bfloat16 a[BM * A_LD];
-  __nv_bfloat16 b[BK * B_LD];
-};
-union Tiles {
-  MainTiles m;
-  float c[BM * C_LD];
-};
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 dcn_fwd_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ offset, int off_stride,
                const float* __restrict__ mask, int mask_stride,
@@ -61,150 +66,160 @@ dcn_fwd_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ inv, const float* __restrict__ shift,
                __nv_bfloat16* __restrict__ out, int B, int H, int W, int Cin,
                int Cout) {
-  __shared__ __align__(128) Tiles tile;
-  __shared__ int s_idx[BM][4];
-  __shared__ float s_w[BM][4];
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* s_a = s_w + STAGES * BK * W_LD;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int warp_m = warp / 4;
   const int warp_n = warp % 4;
-  const long M = (long)B * H * W;
-  const long m0 = (long)blockIdx.x * BM;
+  const int M = B * H * W;
+  const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
+  const int kc = Cin / BK;      // K steps a tap
+  const int nk = 9 * kc;        // K step s reads rows s * BK .. of W
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // W slices: this thread copies the 16 bytes at column w_col of rows
+  // w_r + W_RSTEP j (zero past C_out)
+  constexpr int W_RSTEP = THREADS / (BN / 8);
+  const int w_r = tid / (BN / 8), w_col = (tid % (BN / 8)) * 8;
+  const bool w_ok = n0 + w_col < Cout;
+  const __nv_bfloat16* w_src = wt + (long)w_r * Cout + n0 + w_col;
+  int i_slice = 0, i_stage = 0;  // the next slice to copy
+  auto issue = [&]() {
+    if (i_slice < nk) {
+      const __nv_bfloat16* src = w_src + (long)i_slice * BK * Cout;
+      __nv_bfloat16* dst = s_w + i_stage * BK * W_LD + w_r * W_LD + w_col;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    __syncthreads();  // the previous tap's corner tables are no longer read
-    if (tid < BM) {
-      const long m = m0 + tid;
-      int idx[4] = {-1, -1, -1, -1};
-      float wc[4] = {0.f, 0.f, 0.f, 0.f};
-      if (m < M) {
-        const int xx = (int)(m % W);
-        const long r = m / W;
-        const int yy = (int)(r % H);
-        const int b = (int)(r / H);
-        const float dy = offset[m * off_stride + 2 * tap];
-        const float dx = offset[m * off_stride + 2 * tap + 1];
-        const float mk = mask[m * mask_stride + tap];
-        const float sy = (float)(yy - 1 + tap / 3) + dy;
-        const float sx = (float)(xx - 1 + tap % 3) + dx;
-        const float y0f = floorf(sy);
-        const float x0f = floorf(sx);
-        const float ly = sy - y0f;
-        const float lx = sx - x0f;
-        const int y0 = (int)y0f;
-        const int x0 = (int)x0f;
-        const float cw[4] = {(1.f - ly) * (1.f - lx), (1.f - ly) * lx,
-                             ly * (1.f - lx), ly * lx};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int cy = y0 + (c >> 1);
-          const int cx = x0 + (c & 1);
-          if (cy >= 0 && cy <= H - 1 && cx >= 0 && cx <= W - 1) {
-            idx[c] = (b * H + cy) * W + cx;
-            wc[c] = cw[c] * mk;
-          }
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s_idx[tid][c] = idx[c];
-        s_w[tid][c] = wc[c];
-      }
+      for (int j = 0; j < BK / W_RSTEP; ++j)
+        cp_async16(dst + j * W_RSTEP * W_LD,
+                   w_ok ? src + (long)j * W_RSTEP * Cout : wt, w_ok);
+      ++i_slice;
+      if (++i_stage == STAGES) i_stage = 0;
     }
-    __syncthreads();
+    cp_async_commit();  // an empty group past the last slice
+  };
+  for (int s = 0; s < STAGES - 1; ++s) issue();
 
-    for (int c0 = 0; c0 < Cin; c0 += BK) {
-      // A tile: bilinear, mask-scaled samples of BK channels per pixel.
-      for (int t = tid; t < BM * (BK / 8); t += THREADS) {
-        const int p = t / (BK / 8);
-        const int g = t % (BK / 8);
-        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int id = s_idx[p][c];
-          if (id >= 0) {
-            float f[8];
-            gf::load_vec<8>(x + (long)id * Cin + c0 + g * 8, f);
-            const float w = s_w[p][c];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) v[e] += w * f[e];
-          }
-        }
-        __align__(16) __nv_bfloat162 packed[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          packed[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-        *reinterpret_cast<uint4*>(tile.m.a + p * A_LD + g * 8) =
-            *reinterpret_cast<const uint4*>(packed);
-      }
-      // B tile: rows (tap, c0 .. c0+BK) of W, columns n0 .. n0+BN.
-      for (int t = tid; t < BK * (BN / 8); t += THREADS) {
-        const int k = t / (BN / 8);
-        const int g = t % (BN / 8);
-        const int col = n0 + g * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (col < Cout)
-          val = *reinterpret_cast<const uint4*>(
-              wt + (long)(tap * Cin + c0 + k) * Cout + col);
-        *reinterpret_cast<uint4*>(tile.m.b + k * B_LD + g * 8) = val;
-      }
-      __syncthreads();
+  // this thread's A entry: pixel sp of the block, channels sg * 8 .. + 8 of
+  // the step's chunk
+  const int sp = tid / (BK / 8);
+  const int sg = tid % (BK / 8);
+  Pixel px;
+  px.m = m0 + sp;
+  px.x = px.m % W;
+  px.y = (px.m / W) % H;
+  px.b = px.m / (W * H);
+  const bool live = px.m < M;
+  float raw[3];  // (dy, dx, m) of the tap whose corners are computed next
+  auto load_raw = [&](int tap) {
+    raw[0] = raw[1] = raw[2] = 0.f;
+    if (live) {
+      raw[0] = offset[(long)px.m * off_stride + 2 * tap];
+      raw[1] = offset[(long)px.m * off_stride + 2 * tap + 1];
+      raw[2] = mask[(long)px.m * mask_stride + tap];
+    }
+  };
+  Corners cor;
+  Sample smp;
+  int a_tap = 0, a_chunk = 0;  // the step whose corners load next
+  auto load_a = [&]() {
+    if (a_chunk == 0) {
+      cor = corners_of(a_tap, px, live, raw, H, W, Cin);
+      if (a_tap < 8) load_raw(a_tap + 1);  // a tap ahead
+    }
+    sample_corners(smp, cor, W, Cin, a_chunk * BK + sg * 8, x);
+    if (++a_chunk == kc) {
+      a_chunk = 0;
+      ++a_tap;
+    }
+  };
+
+  // ldmatrix addresses: A(m = pixel, k = channel) at a[p][c], B(k, n) at
+  // w[k][n], the latter loaded transposed
+  const int lr = lane % 8, lm = lane / 8;
+  const int a_off = (warp_m * 32 + (lm % 2) * 8 + lr) * A_LD + (lm / 2) * 8;
+  const int b_off = ((lm % 2) * 8 + lr) * W_LD + warp_n * 64 + (lm / 2) * 8;
+  // a warp whose 64 columns lie past C_out has no MMAs to run
+  const bool warp_live = n0 + warp_n * 64 < Cout;
+  float acc[2][8][4] = {};
+
+  load_raw(0);
+  load_a();
+  sample_store(smp, s_a + sp * A_LD + sg * 8);
+  int stage = 0;
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<STAGES - 2>();  // slice k has landed
+    __syncthreads();  // ... for every thread, as has A tile k; step k - 1's
+    issue();          // MMAs are done, so its stage takes slice k + 2
+    const bool more = k + 1 < nk;
+    if (more) load_a();  // in flight under the MMAs below
+    const __nv_bfloat16* a = s_a + (k & 1) * BM * A_LD + a_off;
+    const __nv_bfloat16* bt = s_w + stage * BK * W_LD + b_off;
+    if (++stage == STAGES) stage = 0;
+    if (warp_live) {
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf[2];
+        unsigned af[2][4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              af[i], tile.m.a + (warp_m * 32 + i * 16) * A_LD + kk, A_LD);
+        for (int i = 0; i < 2; ++i) ldsm_x4(af[i], a + i * 16 * A_LD + kk);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(
-              bf[j], tile.m.b + kk * B_LD + warp_n * 32 + j * 16, B_LD);
+        for (int j = 0; j < 4; ++j) {
+          unsigned bf[4];
+          ldsm_x4_t(bf, bt + kk * W_LD + j * 16);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(acc[i][2 * j], af[i], bf[0], bf[1]);
+            mma_bf16(acc[i][2 * j + 1], af[i], bf[2], bf[3]);
+          }
+        }
       }
-      __syncthreads();
     }
+    if (more)
+      sample_store(smp, s_a + ((k + 1) & 1) * BM * A_LD + sp * A_LD + sg * 8);
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(
-          tile.c + (warp_m * 32 + i * 16) * C_LD + warp_n * 32 + j * 16,
-          acc[i][j], C_LD, wmma::mem_row_major);
+  // epilogue: BN + ReLU in registers, one rounding to bf16, staged through
+  // shared memory (the ring is empty and every MMA is done)
+  cp_async_wait<0>();
   __syncthreads();
-
+  __nv_bfloat16* s_c = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = warp_n * 64 + j * 8 + 2 * (lane % 4);
+    float sc[2] = {1.f, 1.f}, sh[2] = {0.f, 0.f};
+    if (inv != nullptr && n0 + col < Cout) {
+      sc[0] = inv[n0 + col];
+      sc[1] = inv[n0 + col + 1];
+      sh[0] = shift[n0 + col];
+      sh[1] = shift[n0 + col + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = acc[i][j][e];
+        if (inv != nullptr) v[e] = fmaxf(v[e] * sc[e % 2] + sh[e % 2], 0.f);
+      }
+      const int row = warp_m * 32 + i * 16 + lane / 4;
+      *reinterpret_cast<__nv_bfloat162*>(s_c + row * C_LD + col) =
+          __floats2bfloat162_rn(v[0], v[1]);
+      *reinterpret_cast<__nv_bfloat162*>(s_c + (row + 8) * C_LD + col) =
+          __floats2bfloat162_rn(v[2], v[3]);
+    }
+  }
+  __syncthreads();
   for (int t = tid; t < BM * (BN / 8); t += THREADS) {
     const int r = t / (BN / 8);
     const int g = t % (BN / 8);
-    const long m = m0 + r;
+    const int m = m0 + r;
     const int col = n0 + g * 8;
     if (m >= M || col >= Cout) continue;
-    __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float v = tile.c[r * C_LD + g * 8 + e];
-      if (inv != nullptr) v = fmaxf(v * inv[col + e] + shift[col + e], 0.f);
-      o[e] = __float2bfloat16(v);
-    }
-    *reinterpret_cast<uint4*>(out + m * Cout + col) =
-        *reinterpret_cast<const uint4*>(o);
+    *reinterpret_cast<uint4*>(out + (long)m * Cout + col) =
+        *reinterpret_cast<const uint4*>(s_c + r * C_LD + g * 8);
   }
 }
 
@@ -221,9 +236,17 @@ GF_EXPORT int gf_dcn_forward(const void* x, const void* offset,
                              const void* inv, const void* shift, void* out,
                              int B, int H, int W, int Cin, int Cout,
                              void* stream) {
+  if (Cin % 64 != 0 || Cout % 8 != 0) return -1;
   const long M = (long)B * H * W;
+  if (M == 0) return 0;
+  if (M > (1L << 30)) return -1;  // 32-bit pixel indices
+  // (no carveout preference: what shared memory leaves of the SM's 256 KB
+  // is L1, which serves the corner gathers of neighbouring pixels)
+  const cudaError_t err = cudaFuncSetAttribute(
+      dcn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
-  dcn_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  dcn_fwd_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const float*)offset, off_stride,
       (const float*)mask, mask_stride, (const __nv_bfloat16*)weight,
       (const float*)inv, (const float*)shift, (__nv_bfloat16*)out, B, H, W,

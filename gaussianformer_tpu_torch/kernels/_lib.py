@@ -141,6 +141,10 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.gf_fps_forward.restype = I
     so.gf_fps_cluster_size.argtypes = []
     so.gf_fps_cluster_size.restype = I
+    so.gf_fps_forward_ordered.argtypes = [P, P, P, P, I, I, P, I, P]
+    so.gf_fps_forward_ordered.restype = I
+    so.gf_fps_step_floor.argtypes = [I, P, I, P]
+    so.gf_fps_step_floor.restype = I
     so.gf_deformable_forward.argtypes = [
         ctypes.POINTER(P), ctypes.POINTER(I), ctypes.POINTER(I), I, I,
         P, P, P, I, I, I, I, I, I, P]

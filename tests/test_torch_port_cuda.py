@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at small shapes with the edge cases the flagship path does not
 reach: DCN offsets of several pixels (corners outside the image and, in
-the backward, outside the kernel's shared-memory g_x window), masked
-and exhausted FPS and FPS to Prob-256's 19,200 anchors, fp32 deformable
+the backward, outside the kernel's shared-memory g_x window) and the
+forward at the tower's own shapes, masked and exhausted FPS, FPS to
+Prob-256's 19,200 anchors, its ties, both cluster sizes and the
+points-per-thread boundaries, fp32 deformable
 features, a splat with sparse and dense coverage, with per-axis boxes and
 with the threshold label mode, the additive splat with the v1 head's
 whole-grid Gaussian; and
@@ -82,6 +84,108 @@ def test_fps_kernel_at_prob_gs25600_size(gen):
     got = fps.farthest_point_sampling_cuda(pts, k, valid)
     ref = fps.farthest_point_sampling_plain(pts, k, valid)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("offsets", [0.0, 3.0, 12.0])
+@pytest.mark.parametrize("shape", [(6, 54, 100, 256, 256),
+                                   (6, 27, 50, 512, 512),
+                                   (1, 7, 9, 64, 136),
+                                   (1, 11, 13, 128, 512)])
+def test_dcn_kernel_tower_shapes(gen, shape, offsets, epilogue):
+    """K1 at the flagship tower's stage-3 and stage-4 shapes (32,400 and
+    8,100 pixels: neither a whole number of the kernel's 64-pixel blocks),
+    a ragged 63-pixel case with C_out 136 (a column block only partly
+    used) and C_out 512 (two column blocks); offsets of 0, up to 3 px and
+    up to 12 px (corners far outside the image)."""
+    b, h, w, cin, cout = shape
+    x = randn(gen, b, h, w, cin).bfloat16()
+    om = randn(gen, b, h, w, 27)
+    om[..., :18] = (torch.rand(b, h, w, 18, generator=gen, device="cuda")
+                    * 2 - 1) * offsets
+    offset, mask = om[..., :18], torch.sigmoid(om[..., 18:])
+    weight = randn(gen, 3, 3, cin, cout, scale=0.05).bfloat16()
+    epi = ((randn(gen, cout).abs() + 0.5, randn(gen, cout))
+           if epilogue else None)
+    got = dcn.deform_conv2d_cuda(x, offset, mask, weight, epi).float()
+    ref = dcn.deform_conv2d_plain(x, offset, mask, weight, epi).float()
+    # bf16 output: four bf16 ulps at the top of the range
+    assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+
+
+def _fps_equal(pts, k, valid=None, cluster_size=0):
+    got = fps.farthest_point_sampling_cuda(pts, k, valid, cluster_size)
+    ref = fps.farthest_point_sampling_plain(pts, k, valid)
+    assert torch.equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("case", ["duplicates", "equidistant"])
+def test_fps_kernel_ties_take_the_first_index(gen, case):
+    """Exact duplicates (every point four times, spread over the blocks)
+    and equidistant points (a lattice, whose squared distances tie
+    exactly): the first index of a tie wins, as in the plain loop."""
+    if case == "duplicates":
+        base = randn(gen, 5000, 3) * 10
+        pts = base.repeat(4, 1)
+    else:
+        g = torch.arange(24, device="cuda", dtype=torch.float32)
+        pts = torch.stack(torch.meshgrid(g, g, g[:16], indexing="ij"),
+                          -1).reshape(-1, 3).contiguous()
+    got = _fps_equal(pts, 600)
+    assert got.unique().numel() == 600
+
+
+def test_fps_kernel_every_point_invalid(gen):
+    """No valid point: seed 0 and, every distance -inf, index 0 again."""
+    pts = randn(gen, 3000, 3)
+    valid = torch.zeros(3000, dtype=torch.bool, device="cuda")
+    got = _fps_equal(pts, 40, valid)
+    assert not got.any()
+
+
+@pytest.mark.parametrize("n", [1, 100, 1000])
+def test_fps_kernel_fewer_points_than_threads(gen, n):
+    """N below one cluster's thread count (most threads hold no point)."""
+    _fps_equal(randn(gen, n, 3), min(n, 64),
+               torch.rand(n, generator=gen, device="cuda") > 0.3)
+
+
+@pytest.mark.parametrize("past", [0, 1])
+@pytest.mark.parametrize("doublings", [0, 1, 2, 3])
+def test_fps_kernel_points_per_thread_boundaries(gen, doublings, past):
+    """N at and one past each points-per-thread boundary of the card's
+    cluster: cluster size x 1024 x 2^j (+ 1)."""
+    n = fps.default_cluster_size() * 1024 * 2 ** doublings + past
+    pts = randn(gen, n, 3) * torch.tensor([20.0, 20.0, 2.0], device="cuda")
+    _fps_equal(pts, 64, torch.rand(n, generator=gen, device="cuda") > 0.2)
+
+
+def test_fps_kernel_one_and_all_selections(gen):
+    """S = 1 (the seed alone, the first valid index) and S = N (the valid
+    points run out and the tail takes the rest)."""
+    n = 3000
+    pts = randn(gen, n, 3)
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.5
+    valid[:3] = False
+    first = int(valid.nonzero()[0])
+    assert _fps_equal(pts, 1, valid).tolist() == [first]
+    _fps_equal(pts, n, valid)
+
+
+@pytest.mark.parametrize("cluster_size", [8, 16])
+def test_fps_kernel_cluster_sizes(gen, cluster_size):
+    """Both cluster sizes give the plain loop's indices at the lifter's
+    129,600 candidates; the latency floor (the exchange alone) runs."""
+    if cluster_size > fps.default_cluster_size():
+        pytest.skip(f"this card takes clusters of "
+                    f"{fps.default_cluster_size()}")
+    n = 129_600
+    pts = randn(gen, n, 3) * torch.tensor([25.0, 25.0, 2.0], device="cuda")
+    _fps_equal(pts, 2000, torch.rand(n, generator=gen, device="cuda") > 0.2,
+               cluster_size)
+    fps.fps_step_floor_cuda(2000, pts.device, cluster_size)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
