@@ -14,7 +14,8 @@ Phases (each raises on failure, so the script exits nonzero):
             grid, random weights from a seed) under inference mode,
             capturing each kernel's inputs; then one counted frame (every
             launch counter set to 0 just before, read just after: 52 DCN,
-            1 FPS, 4 deformable, 1 splat launches, no backward kernel),
+            1 FPS, 4 deformable, 1 splat binning and 1 splat launches, no
+            backward kernel),
             three timed frames and one profiled frame for the device's idle
             share;
 3. kernels  each forward kernel against its plain PyTorch version on the
@@ -22,7 +23,12 @@ Phases (each raises on failure, so the script exits nonzero):
             times; for K1 also cuDNN's dense bf16 3x3 conv of the same
             shape (conv_ms, a yardstick of the GEMM), for K2 its time a
             selection and its latency floor (the per-step exchange alone,
-            as many steps over no points);
+            as many steps over no points); for K4 its tile bins
+            (csrc/splat_bin.cu) against the plain bins, every element
+            equal, with their entries, COVERS share, list lengths and time
+            (a row of their own), K4 timed with its binning and held equal
+            on the path's bins, and whether its sums are the plain
+            version's bits (informational);
 4. small    the tiny config's forward on the GPU (towers without DCN,
             fp32) against the same model run on the CPU;
 5. train    the full-width train step (forward with dropout, losses,
@@ -34,7 +40,10 @@ Phases (each raises on failure, so the script exits nonzero):
             gradient norm, trained parameters moved, frozen ones unchanged
             to the bit;
 6. backward each backward kernel against its plain backward version on the
-            captured inputs and cotangents; for K5 also the share of
+            captured inputs and cotangents (K7 on the forward's bins, as
+            the path runs it: equal to K7 binning on its own, the same bits
+            on a second call, each of its two launches timed); for K5 also
+            the share of
             corners outside its shared-memory g_x window, each of its two
             launches' time (CUDA events), and the stage-3 inputs once
             more with the offsets moved by up to 6 px, so that its
@@ -51,10 +60,11 @@ Phases (each raises on failure, so the script exits nonzero):
             decides the labels at init, once more with its semantics
             zeroed); each config's train step as in phase 5 (plus
             26 DCN, 4 deformable and 1 additive splat backward launches,
-            or 4 splats and 4 backwards where gs144000 supervises every
-            refine layer; the lifter's bank and the head's empty_scalar
-            among the trained leaves) and its backward kernels as in phase
-            6, the empty Gaussian's gradient row held on its own and the
+            or 4 binnings, 4 splats and 4 backwards where gs144000
+            supervises every refine layer; the lifter's bank and the head's
+            empty_scalar among the trained leaves) and its backward kernels
+            as in phase 6, the empty Gaussian's gradient row (its box the
+            whole grid, an entry in every tile) held on its own and the
             other rows to their own largest value; the tiny
             gs25600_solid forward and two train steps, GPU against CPU;
 9. family   prob_gs12800 (Prob-128: 6400 FPS anchors + 6400 random) and
@@ -88,32 +98,34 @@ import types
 
 FRAMES = 3
 STEPS = 3
-NO_LAUNCH = {"dcn": 0, "fps": 0, "deformable": 0, "splat": 0,
-             "splat_additive": 0, "dcn_bwd": 0, "deformable_bwd": 0,
-             "splat_bwd": 0, "splat_bwd_additive": 0}
+NO_LAUNCH = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
+             "splat": 0, "splat_additive": 0, "dcn_bwd": 0,
+             "deformable_bwd": 0, "splat_bwd": 0, "splat_bwd_additive": 0}
+# the splat's tile binning runs once per forward splat; the backward takes
+# the forward's bins
 EXPECTED_LAUNCHES = {**NO_LAUNCH, "dcn": 52, "fps": 1, "deformable": 4,
-                     "splat": 1}
+                     "splat_bin": 1, "splat": 1}
 # a train step without checkpointing: the forward's kernels once, and each
 # backward kernel once per forward launch
 EXPECTED_TRAIN_LAUNCHES = {**EXPECTED_LAUNCHES, "dcn_bwd": 52,
                            "deformable_bwd": 4, "splat_bwd": 1}
 # the v1 configs: one tower (26 DCN blocks), no FPS, the additive splat
-V1_LAUNCHES = {**NO_LAUNCH, "dcn": 26, "deformable": 4, "splat_additive": 1}
+V1_LAUNCHES = {**NO_LAUNCH, "dcn": 26, "deformable": 4, "splat_bin": 1,
+               "splat_additive": 1}
 V1_TRAIN_LAUNCHES = {**V1_LAUNCHES, "dcn_bwd": 26, "deformable_bwd": 4,
                      "splat_bwd_additive": 1}
 # gs144000 supervises all four refine layers: four splats and backwards
-V1_ALL_TRAIN_LAUNCHES = {**V1_TRAIN_LAUNCHES, "splat_additive": 4,
-                         "splat_bwd_additive": 4}
+V1_ALL_TRAIN_LAUNCHES = {**V1_TRAIN_LAUNCHES, "splat_bin": 4,
+                         "splat_additive": 4, "splat_bwd_additive": 4}
 # tolerances of the backward kernels against their plain versions: a bf16
 # output may differ by a rounding flip of its fp32 sum (two bf16 ulps at the
 # top of the range); fp32 gradients summed over thousands of terms in
-# another order, with atomics whose order changes from run to run, to 1e-3
-# of the largest |ref|
+# another order (with atomics for K5 and K6), to 1e-3 of the largest |ref|
 BF16_TOL = 2.0 ** -7
 SUM_TOL = 1e-3
-# the additive backward kernel walks a box of more voxels than this in
-# segments (``csrc/splat_bwd.cu``); among the v1 configs' Gaussians only
-# the head's empty one, the last of its table, has such a box
+# a box of more voxels than this is the v1 head's empty Gaussian, the last
+# of its table, whose box is the whole grid (an entry in every tile of the
+# splat's bins): its rows dwarf the others', so they are held on their own
 BIG_BOX = 8192
 # K5 once more on the stage-3 inputs with offsets moved by up to this many
 # pixels, so that its global-atomic fallback runs at full width
@@ -299,7 +311,10 @@ def main() -> int:
     family = prob_family_phase(get_config, build_segmentor, synthetic_batch,
                                mods, rows)
 
-    kernels = [r for r in rows if r.pop("report")]
+    flat = []
+    for r in rows:
+        flat += [r] + r.pop("extra_rows", [])
+    kernels = [r for r in flat if r.pop("report")]
     log(json.dumps({"card": card, "frame_ms": frame_ms,
                     "frame_wall_ms": wall_ms,
                     "frame_idle_share": fwd["frame_idle_share"],
@@ -592,20 +607,23 @@ def check_per_axis(fwd_calls, train_calls, p, mods, rows):
 
     gdata, box, sem_aug = per_axis_tables(fwd_calls)
     fn, args, kw = captured(fwd_calls, ("splat", "prob", p))
+    # the path's bins are of the isotropic boxes: none are passed
+    kw = {k: v for k, v in kw.items() if k != "bins"}
     call = (fn, (args[0], gdata, box, sem_aug) + args[4:], kw)
-    row = check_kernel(("splat", "prob", p), call, {"splat": 0}, mods,
+    row = check_kernel(("splat", "prob", p), call,
+                       {"splat": 0, "splat_bin": 0}, mods,
                        tag="prob_gs25600_per_axis")
     iso = splat_pairs(args[0], args[2], args[4])
     log(f"# per-axis boxes: {row['aabb_pairs']} AABB pairs against "
         f"{iso} isotropic")
     _, box7, _ = per_axis_tables(train_calls)
     fn, args, kw = captured(train_calls, ("splat_bwd", "prob", p))
-    call = (fn, args[:4] + (box7,) + args[5:], kw)
+    call = (fn, args[:4] + (box7,) + args[5:], {})
     row7 = check_backward(("splat_bwd", "prob", p), call, {"splat_bwd": 0},
                           mods, tag="prob_gs25600_per_axis")
-    for r in (row, row7):
+    for r in [row, row7] + row.get("extra_rows", []):
         r["report"] = False
-        rows.append(r)
+    rows += [row, row7]
 
 
 def check_kernel(key, call, launches, mods, tag=""):
@@ -700,7 +718,9 @@ def check_kernel(key, call, launches, mods, tag=""):
     elif key[1] == "additive":
         points, gdata, box, sem_aug, grid, variant = args
         got = fn(*args)
+        held_given_bins(f"splat_additive{suffix}", got, fn(*args, **kw))
         ref, plain_ms = timed(lambda: splat.splat_accumulate_plain(*args))
+        log_bit_equal(f"splat_additive{suffix}", got, ref)
         c = sem_aug.shape[1] - 2
         err, tol = held_additive(f"splat_additive{suffix}", got, ref, c)
         if splat_pairs(points, box[-1:], grid) > BIG_BOX:
@@ -715,6 +735,7 @@ def check_kernel(key, call, launches, mods, tag=""):
                           f"semantics zeroed)", fn(*args0),
                           splat.splat_accumulate_plain(*args0), c)
             del sem0, args0
+        # the kernel's time includes its binning (the call builds its own)
         ms = cuda_ms(lambda: fn(*args), 10)
         pairs = splat_pairs(points, box, grid)
         # per (point, Gaussian) pair in the AABB: displacement and
@@ -730,12 +751,18 @@ def check_kernel(key, call, launches, mods, tag=""):
                    replaces="gaussianformer_tpu/ops/pallas/"
                             "splat_kernel.py:249",
                    launches=launches["splat_additive"],
-                   shape=[n, gdata.shape[0]], aabb_pairs=pairs, report=True)
+                   shape=[n, gdata.shape[0]], aabb_pairs=pairs, report=True,
+                   extra_rows=[check_bins(points, box, grid, suffix,
+                                          launches, mods, True)])
     else:
         points, gdata, box, sem_aug, grid, variant = args
+        # the path hands K4 its bins; timed and checked here building its own
+        kw, path_kw = ({k: v for k, v in kw.items() if k != "bins"}, kw)
         got = fn(*args, **kw)
+        held_given_bins(f"splat_prob{suffix}", got, fn(*args, **path_kw))
         ref, plain_ms = timed(
             lambda: splat.splat_accumulate_plain(*args, **kw))
+        log_bit_equal(f"splat_prob{suffix}", got, ref)
         err = (got[0] - ref[0]).abs().max().item()
         # fp32 sums over up to thousands of Gaussians in another order
         tol = 1e-4 * max(ref[0].abs().max().item(), 1.0)
@@ -768,7 +795,10 @@ def check_kernel(key, call, launches, mods, tag=""):
                    replaces="gaussianformer_tpu/ops/pallas/"
                             "splat_kernel.py:249",
                    launches=launches["splat"], shape=[n, gdata.shape[0]],
-                   aabb_pairs=pairs, report=True)
+                   aabb_pairs=pairs, report=True,
+                   extra_rows=[check_bins(points, box, grid, suffix,
+                                          launches, mods,
+                                          mode == "combine")])
         log(f"# {row['name']}: {pairs} AABB pairs, {gdata.shape[0]} "
             f"Gaussians")
     peak = PEAK_BF16 if name == "dcn" else PEAK_FP32
@@ -791,6 +821,71 @@ def check_kernel(key, call, launches, mods, tag=""):
     if not err <= tol:
         raise RuntimeError(f"{row['name']} disagrees with its plain "
                            f"version: {err} > {tol}")
+    return row
+
+
+def held_given_bins(name, got, on_path_bins):
+    """K4 on the bins the path built gives the bits of K4 building its
+    own."""
+    if not all(a is None and b is None or torch_equal(a, b)
+               for a, b in zip(got, on_path_bins)):
+        raise RuntimeError(f"{name}: K4 on the path's bins differs from K4 "
+                           f"on its own")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def log_bit_equal(name, got, ref):
+    """Informational: whether K4's sums (and one_minus) are the plain
+    version's bits (the plain version sums each voxel's Gaussians in
+    another order, as dense products)."""
+    log(f"# {name} sums bit-equal to the plain version's: "
+        f"acc {torch_equal(got[0], ref[0])}"
+        + ("" if got[1] is None else
+           f", one_minus {torch_equal(got[1], ref[1])}"))
+
+
+def check_bins(points, box, grid, suffix, launches, mods, report):
+    """The splat's tile bins (``csrc/splat_bin.cu``) against their plain
+    version on the path's boxes, every tensor equal; their time (CUDA
+    events, the one host read included), the entries, the COVERS share and
+    the tiles' mean and largest list lengths. Returns its kernels-line
+    row."""
+    splat = mods.splat
+    got = splat.bin_gaussians_cuda(points, box, grid)
+    ref, plain_ms = timed(lambda: splat.bin_gaussians_plain(box, grid))
+    names = ("tile_start", "tile_items", "entries", "slot", "gauss_start")
+    err = float(sum(
+        getattr(got, k).numel() if getattr(got, k).shape
+        != getattr(ref, k).shape
+        else int((getattr(got, k) != getattr(ref, k)).sum().item())
+        for k in names))
+    stats = got.stats()
+    ms = cuda_ms(lambda: splat.bin_gaussians_cuda(points, box, grid), 10)
+    p, e, t = box.shape[0], stats["entries"], stats["tiles"]
+    # each input read once (the boxes, the points for the raster check),
+    # each output written once (Gaussian and tile starts, entries, slots)
+    nbytes = p * 24 + points.shape[0] * 12 + ((p + 1) + 2 * e + (t + 1)) * 4
+    row = dict(name="splat_bins" + suffix, route="cuda",
+               source="gaussianformer_tpu_torch/csrc/splat_bin.cu",
+               replaces="gaussianformer_tpu/ops/pallas/splat_kernel.py:343",
+               launches=launches["splat_bin"], shape=[points.shape[0], p],
+               **stats, max_abs_err=err, tol=0.0, ms=ms, plain_ms=plain_ms,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               library_ms=None, report=report)
+    log(f"# {row['name']}: {e} entries over {t} tiles of "
+        f"{'x'.join(map(str, splat.TILE))} voxels, COVERS share "
+        f"{stats['covers_share']:.4f}, list length mean "
+        f"{stats['mean_list']:.1f} max {stats['max_list']}; "
+        f"{err:.0f} elements differ from the plain bins; binning "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms (bytes)")
+    if err:
+        raise RuntimeError(f"{row['name']}: the bins differ from the plain "
+                           f"version's")
     return row
 
 
@@ -1045,7 +1140,7 @@ def check_backward(key, call, launches, mods, tag=""):
     not reported, as for K1). ``tag`` as in :func:`check_kernel`."""
     import torch
     dcn, deformable, splat = mods.dcn, mods.deformable, mods.splat
-    fn, args, _ = call
+    fn, args, kw = call
     name = key[0]
     suffix = f"_{tag}" if tag else ""
     if name == "dcn_bwd":
@@ -1125,12 +1220,16 @@ def check_backward(key, call, launches, mods, tag=""):
                                      else "splat_bwd"], shape=[n, p],
                    aabb_pairs=pairs, report=True)
     got = fn(*args)
+    if name == "splat_bwd":
+        # K7 on the forward's bins (as the path runs it) and on its own;
+        # twice, as it has no atomics: the same bits each time
+        row.update(splat_backward_extras(fn, args, kw, got, mods))
     ref, plain_ms = timed(lambda: plain(*args))
     vol = (splat_pairs(points, box[-1:], grid)
            if name == "splat_bwd" and additive else 0)
     if vol > BIG_BOX:
         # the last Gaussian is the head's empty one, whose box is the whole
-        # grid: the kernel sums it in segments with atomics
+        # grid (an entry in every tile): its row dwarfs the others
         parts = []
         for out_name, gt, rf in zip(outs, got, ref):
             e, t = _max_err(out_name, gt[-1], rf[-1], SUM_TOL)
@@ -1158,7 +1257,8 @@ def check_backward(key, call, launches, mods, tag=""):
             + ", ".join(f"{k} {e:.3e} (1e-3 max|ref| {t:.3e})"
                         for k, (e, t) in whole.items()))
     del got, ref
-    ms = cuda_ms(lambda: fn(*args), 10)
+    # K7 timed on the forward's bins, as the path runs it
+    ms = cuda_ms(lambda: fn(*args, **kw), 10)
     if name == "dcn_bwd":
         row.update(dcn_backward_extras(fn, args, mods))
     t_ops = flops / peak * 1e3
@@ -1179,6 +1279,36 @@ def check_backward(key, call, launches, mods, tag=""):
         raise RuntimeError(f"{row['name']} disagrees with its plain "
                            f"version: {bad}")
     return row
+
+
+def splat_backward_extras(fn, args, kw, got, mods) -> dict:
+    """K7's numbers beside its row: on the forward's bins (``kw``, the
+    path's call) it must give the bits of ``got`` (K7 binning on its own),
+    and the same bits again; each launch's time alone (the tile launch, the
+    fold) and the workspace's size."""
+    splat = mods.splat
+    on_path = fn(*args, **kw)
+    again = fn(*args, **kw)
+    same = all(torch_equal(a, b) for a, b in zip(got, on_path))
+    repeat = all(torch_equal(a, b) for a, b in zip(on_path, again))
+    bins = kw.get("bins")
+    if bins is None:
+        bins = splat.bin_gaussians_cuda(args[0], args[4], args[7])
+    kwb = {**kw, "bins": bins}
+    launch = {part: cuda_ms(lambda: fn(*args, **kwb, parts=bit), 10)
+              for part, bit in (("tile", splat.TILE_LAUNCH),
+                                ("fold", splat.FOLD_LAUNCH))}
+    c = args[3].shape[1]
+    work_mb = bins.num_entries * (-(-(10 + c) // 4) * 4) * 4 / 1e6
+    log(f"# splat backward: on the forward's bins equal to binning its own "
+        f"{same}, a second call bit-equal {repeat}; tile launch "
+        f"{launch['tile']:.4f} ms, fold {launch['fold']:.4f} ms; "
+        f"{bins.num_entries} entries, workspace {work_mb:.1f} MB")
+    if not (same and repeat):
+        raise RuntimeError("K7 is not deterministic across its bins or "
+                           "calls")
+    return dict(launch_ms=launch, entries=bins.num_entries,
+                workspace_mb=work_mb, forward_bins=kw.get("bins") is not None)
 
 
 def dcn_launches(dcn, args, iters: int = 10) -> dict:

@@ -32,246 +32,312 @@
 // which depends on the Gaussians' radii (counted by the caller from the
 // run's data).
 //
-// Design: a first version tiled over voxels. A block owns TILE consecutive
-// points (one per thread) and walks the Gaussians in chunks of TILE: each
-// thread tests one Gaussian's box against the block's voxel bounds, the
-// overlapping ones are compacted into shared memory in index order (warp
-// ballots, so the accumulation order is deterministic), and every thread
-// then runs the per-point AABB test and, inside it, the exponent and the
-// accumulation in registers. Per-tile binning of the Gaussians (the
-// reference's localagg_prob) is the next step: with the v1 models' many
-// small boxes (25,601 or 144,000 Gaussians of 1-4 voxels radius) the scan
-// of every box by every block is most of the time. The variant is a
-// template parameter, so the prob kernel's code is as it was.
+// Design: the points are the raster voxel grid, and the Gaussians are
+// binned by voxel tile beforehand (splat_bin.cu: per tile, the ascending
+// indices of the Gaussians whose box meets it, each with a COVERS flag).
+// One block per work item of the bins: a tile, the tiles with the longest
+// lists first, or half of one whose list is more than twice the mean (its
+// first or last TX / 2 x planes, the other warps idle). A thread owns VPT
+// voxels along z, so a warp owns one x plane of the tile and the box test on
+// x is uniform across it. The
+// tile's entries are staged through shared memory in chunks with a
+// cp.async double buffer (gdata padded to 12 floats, the box and the entry,
+// the sem_aug row), read back with 16-byte loads; each Gaussian read
+// serves a thread's VPT voxels. A COVERS entry runs without a box test.
+// Where a thread's voxels share x and y (a raster grid), the exponent is
+// taken as a quadratic in dz whose three coefficients are computed once per
+// Gaussian for the VPT voxels, and exp is the hardware's (ex2.approx). Each
+// voxel sums its Gaussians in ascending index order (outside voxels add
+// e = 0, which leaves the sums' bits as they were), so the sums are
+// deterministic. The accumulation stays on fp32 FMAs: cut out, they were
+// a sixth of the kernel's time (the exponent another sixth; the box tests,
+// the quadratic and the loop the rest), and a version that summed on
+// tensor cores (mma.sync m16n8k8 tf32, hi/lo split, e computed into the A
+// fragment) was slower than this one.
 #include <math.h>
 
-#include "common.cuh"
+#include "splat_bin.cuh"
 
 namespace {
 
-constexpr int TILE = 256;
-constexpr int WARPS = TILE / 32;
+using namespace gf::splat;
+
+constexpr int VPT = 4;                      // voxels a thread, along z
+constexpr int THREADS = TILE_VOXELS / VPT;  // 256
+constexpr int CHUNK = 64;                   // entries staged at once
+static_assert(TY * TZ / VPT == 32, "a warp owns one x plane of the tile");
 
 template <int MAXC, bool PROB>
-__global__ void __launch_bounds__(TILE)
-splat_kernel(const float* __restrict__ pts, int N,
-             const float* __restrict__ gdata, const int* __restrict__ box,
-             const float* __restrict__ sem, int P, int C, float pcx,
-             float pcy, float pcz, float gs, int GH, int GW, int GD,
-             float* __restrict__ acc_out, float* __restrict__ om_out,
-             int* __restrict__ labels, bool threshold, float thresh,
-             int empty_label) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(THREADS, MAXC <= 18 ? 2 : 1)
+splat_kernel(const float* __restrict__ pts, const float* __restrict__ gdata,
+             const int* __restrict__ box, const float* __restrict__ sem,
+             int c_arg, int GH, int GW, int GD,
+             const int* __restrict__ tile_start,
+             const int* __restrict__ tile_items,
+             const int* __restrict__ entries, float* __restrict__ acc_out,
+             float* __restrict__ om_out, int* __restrict__ labels,
+             bool threshold, float thresh, int empty_label) {
+  constexpr int SP = round4(MAXC + 2);
+  constexpr int R = record_words(SP);
+  __shared__ __align__(16) float s_rec[2][CHUNK * R];
+  // the flagship's width is a constant, so its channel loops fold
+  const int C = MAXC == 18 ? 18 : c_arg;
   const int CA = C + 2;
-  float* s_g = smem;                                   // [TILE][9]
-  int* s_box = reinterpret_cast<int*>(s_g + TILE * 9);  // [TILE][6]
-  float* s_sem = reinterpret_cast<float*>(s_box + TILE * 6);  // [TILE][CA]
-  __shared__ int s_lo[3], s_hi[3];
-  __shared__ int s_wcount[WARPS];
 
+  const int tiles = ((GH + TX - 1) / TX) * ((GW + TY - 1) / TY) *
+                    ((GD + TZ - 1) / TZ);
+  if (blockIdx.x >= tile_items[2 * tiles]) return;
+  const int item = tile_items[blockIdx.x];
+  const int tile = item >> 2;
+  const int half = item & 3;   // 0 the whole tile, 1 / 2 its x planes' halves
+  const Tile tl = tile_of(tile, GH, GW, GD);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long n = (long)blockIdx.x * TILE + tid;
-  const bool live = n < N;
-
-  float x = 0.f, y = 0.f, z = 0.f;
-  int iv[3] = {0, 0, 0};
-  if (live) {
-    x = pts[3 * n];
-    y = pts[3 * n + 1];
-    z = pts[3 * n + 2];
-    const float pc[3] = {pcx, pcy, pcz};
-    const float xyz[3] = {x, y, z};
-    const int dims[3] = {GH, GW, GD};
+  const bool mine = half == 0 || ((tid >> 5) < TX / 2) == (half == 1);
+  const int ix = tl.x0 + (tid >> 5);
+  const int iy = tl.y0 + lane / (TZ / VPT);
+  const int iz0 = tl.z0 + (lane % (TZ / VPT)) * VPT;
+  const long n0 = ((long)ix * GW + iy) * GD + iz0;
+  bool live[VPT];
+  float xs[VPT], ys[VPT], zs[VPT];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      int i = (int)floorf((xyz[a] - pc[a]) / gs);
-      iv[a] = min(max(i, 0), dims[a] - 1);
+  for (int v = 0; v < VPT; ++v) {
+    live[v] = mine && ix < GH && iy < GW && iz0 + v < GD;
+    xs[v] = ys[v] = zs[v] = 0.f;
+    if (live[v]) {
+      xs[v] = pts[3 * (n0 + v)];
+      ys[v] = pts[3 * (n0 + v) + 1];
+      zs[v] = pts[3 * (n0 + v) + 2];
     }
   }
-  if (tid < 3) {
-    s_lo[tid] = 0x7fffffff;
-    s_hi[tid] = -0x7fffffff;
-  }
-  __syncthreads();
-  if (live) {
+  // on a raster grid a thread's voxels share x and y: the exponent is then
+  // a quadratic in dz whose coefficients serve all VPT voxels
+  bool column = true;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      atomicMin(&s_lo[a], iv[a]);
-      atomicMax(&s_hi[a], iv[a]);
-    }
-  }
-  __syncthreads();
-  const int lo0 = s_lo[0], lo1 = s_lo[1], lo2 = s_lo[2];
-  const int hi0 = s_hi[0], hi1 = s_hi[1], hi2 = s_hi[2];
+  for (int v = 1; v < VPT; ++v)
+    column &= !live[v] || (xs[v] == xs[0] && ys[v] == ys[0]);
 
-  float a[MAXC];
+  float a[VPT][MAXC];
+  float ps[VPT], dens[VPT], om[VPT];
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) a[c] = 0.f;
-  float ps = 0.f, dens = 0.f, om = 1.f;
+  for (int v = 0; v < VPT; ++v) {
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) a[v][c] = 0.f;
+    ps[v] = dens[v] = 0.f;
+    om[v] = 1.f;
+  }
 
-  for (int j0 = 0; j0 < P; j0 += TILE) {
-    const int j = j0 + tid;
-    int bx[6];
-    bool hit = false;
-    if (j < P) {
-#pragma unroll
-      for (int e = 0; e < 6; ++e) bx[e] = box[6 * (long)j + e];
-      hit = bx[0] <= hi0 && bx[3] >= lo0 && bx[1] <= hi1 && bx[4] >= lo1 &&
-            bx[2] <= hi2 && bx[5] >= lo2;
+  const int first = tile_start[tile];
+  const int total = tile_start[tile + 1] - first;
+  const int nch = (total + CHUNK - 1) / CHUNK;
+  if (nch > 0)
+    stage_entries<SP, THREADS>(s_rec[0], entries, first, min(CHUNK, total),
+                               gdata, nullptr, box, sem, CA, nullptr);
+  gf::cp_async_commit();
+  for (int k = 0; k < nch; ++k) {
+    if (k + 1 < nch) {
+      const int f = first + (k + 1) * CHUNK;
+      stage_entries<SP, THREADS>(s_rec[(k + 1) & 1], entries, f,
+                                 min(CHUNK, first + total - f), gdata,
+                                 nullptr, box, sem, CA, nullptr);
     }
-    const unsigned bal = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) s_wcount[warp] = __popc(bal);
+    gf::cp_async_commit();
+    gf::cp_async_wait<1>();
     __syncthreads();
-    int off = 0, total = 0;
+    const float* buf = s_rec[k & 1];
+    const int cnt = min(CHUNK, total - k * CHUNK);
+    for (int s = 0; s < cnt; ++s) {
+      const float* rec = buf + s * R;
+      const int4 b0 = *reinterpret_cast<const int4*>(rec + 12);  // lo, hi.x
+      const int4 b1 = *reinterpret_cast<const int4*>(rec + 16);  // hi.yz, e
+      bool in[VPT];
+      if (b1.z < 0) {   // COVERS: the box holds the whole tile
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const int cnt = s_wcount[w];
-      off += w < warp ? cnt : 0;
-      total += cnt;
-    }
-    if (hit) {
-      const int slot = off + __popc(bal & ((1u << lane) - 1u));
+        for (int v = 0; v < VPT; ++v) in[v] = live[v];
+      } else {
+        if (ix < b0.x || ix > b0.w) continue;   // uniform across the warp
+        const bool yin = iy >= b0.y && iy <= b1.x;
 #pragma unroll
-      for (int e = 0; e < 9; ++e) s_g[slot * 9 + e] = gdata[9 * (long)j + e];
+        for (int v = 0; v < VPT; ++v)
+          in[v] = live[v] && yin && iz0 + v >= b0.z && iz0 + v <= b1.y;
+      }
+      bool any = false;
 #pragma unroll
-      for (int e = 0; e < 6; ++e) s_box[slot * 6 + e] = bx[e];
-      for (int e = 0; e < CA; ++e)
-        s_sem[slot * CA + e] = sem[(long)j * CA + e];
-    }
-    __syncthreads();
-    if (live) {
-      for (int s = 0; s < total; ++s) {
-        const int* b = s_box + s * 6;
-        if (iv[0] < b[0] || iv[0] > b[3] || iv[1] < b[1] || iv[1] > b[4] ||
-            iv[2] < b[2] || iv[2] > b[5])
-          continue;
-        const float* g = s_g + s * 9;
-        const float dx = g[0] - x;
-        const float dy = g[1] - y;
-        const float dz = g[2] - z;
-        const float logit =
-            -0.5f * (g[3] * dx * dx + g[4] * dy * dy + g[5] * dz * dz) -
-            (g[6] * dx * dy + g[7] * dy * dz + g[8] * dx * dz);
-        const float e = expf(fminf(logit, 30.f));
-        const float* sr = s_sem + s * CA;
+      for (int v = 0; v < VPT; ++v) any |= in[v];
+      if (!any) continue;
+      const float4 g0 = *reinterpret_cast<const float4*>(rec);
+      const float4 g1 = *reinterpret_cast<const float4*>(rec + 4);
+      const float g8 = rec[8];
+      float e[VPT];
+      if (column) {
+        const float dx = g0.x - xs[0];
+        const float dy = g0.y - ys[0];
+        const float q0 =
+            -0.5f * (g0.w * dx * dx + g1.x * dy * dy) - g1.z * dx * dy;
+        const float q1 = -(g1.w * dy + g8 * dx);
+        const float q2 = -0.5f * g1.y;
 #pragma unroll
-        for (int c = 0; c < MAXC; ++c)
-          if (c < C) a[c] += e * sr[c];
-        ps += e * sr[C];
-        dens += e * sr[C + 1];
-        if (PROB) om *= 1.f - e;
+        for (int v = 0; v < VPT; ++v) {
+          const float dz = g0.z - zs[v];
+          const float logit = fmaf(fmaf(q2, dz, q1), dz, q0);
+          e[v] = in[v] ? __expf(fminf(logit, 30.f)) : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < VPT; ++v) {
+          const float dx = g0.x - xs[v];
+          const float dy = g0.y - ys[v];
+          const float dz = g0.z - zs[v];
+          const float logit =
+              -0.5f * (g0.w * dx * dx + g1.x * dy * dy + g1.y * dz * dz) -
+              (g1.z * dx * dy + g1.w * dy * dz + g8 * dx * dz);
+          e[v] = in[v] ? __expf(fminf(logit, 30.f)) : 0.f;
+        }
+      }
+      const float* sr = rec + 20;
+      if constexpr (MAXC == 18) {
+        float q[20];
+#pragma unroll
+        for (int j = 0; j < 5; ++j) {
+          const float4 t = reinterpret_cast<const float4*>(sr)[j];
+          q[4 * j] = t.x;
+          q[4 * j + 1] = t.y;
+          q[4 * j + 2] = t.z;
+          q[4 * j + 3] = t.w;
+        }
+#pragma unroll
+        for (int v = 0; v < VPT; ++v) {
+#pragma unroll
+          for (int c = 0; c < 18; ++c) a[v][c] += e[v] * q[c];
+          ps[v] += e[v] * q[18];
+          dens[v] += e[v] * q[19];
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < MAXC; ++c) {
+          if (c < C) {
+            const float q = sr[c];
+#pragma unroll
+            for (int v = 0; v < VPT; ++v) a[v][c] += e[v] * q;
+          }
+        }
+        const float qp = sr[C], qd = sr[C + 1];
+#pragma unroll
+        for (int v = 0; v < VPT; ++v) {
+          ps[v] += e[v] * qp;
+          dens[v] += e[v] * qd;
+        }
+      }
+      if (PROB) {
+#pragma unroll
+        for (int v = 0; v < VPT; ++v) om[v] *= 1.f - e[v];
       }
     }
-    __syncthreads();
+    __syncthreads();   // the buffer is staged again two chunks on
   }
 
-  if (!live) return;
-  float* ao = acc_out + n * CA;
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c)
-    if (c < C) ao[c] = a[c];
-  ao[C] = ps;
-  ao[C + 1] = dens;
-  if (PROB) om_out[n] = om;
-  if (labels != nullptr && !PROB) {
-    float best = -INFINITY;
-    int lab = 0;
+  for (int v = 0; v < VPT; ++v) {
+    if (!live[v]) continue;
+    const long n = n0 + v;
+    float* ao = acc_out + n * CA;
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < C && a[c] > best) {
-        best = a[c];
-        lab = c;
-      }
-    }
-    labels[n] = lab;
-  } else if (labels != nullptr) {
-    const bool covered = ps > 1e-9f;
-    const float denom = covered ? ps : 1.f;
-    const float uni = 1.f / (float)(C - 1);
-    const float bins = 1.f - om;
-    float best = -INFINITY;
-    int lab = 0;
+    for (int c = 0; c < MAXC; ++c)
+      if (c < C) ao[c] = a[v][c];
+    ao[C] = ps[v];
+    ao[C + 1] = dens[v];
+    if (PROB) om_out[n] = om[v];
+    if (labels != nullptr && !PROB) {
+      float best = -INFINITY;
+      int lab = 0;
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < C) {
-        const float logit = covered ? a[c] / denom : (c == C - 1 ? 0.f : uni);
-        const float comb =
-            threshold ? logit : (c == C - 1 ? 1.f - bins : logit * bins);
-        if (comb > best) {
-          best = comb;
+      for (int c = 0; c < MAXC; ++c) {
+        if (c < C && a[v][c] > best) {
+          best = a[v][c];
           lab = c;
         }
       }
+      labels[n] = lab;
+    } else if (labels != nullptr) {
+      const bool covered = ps[v] > 1e-9f;
+      const float denom = covered ? ps[v] : 1.f;
+      const float uni = 1.f / (float)(C - 1);
+      const float bins = 1.f - om[v];
+      float best = -INFINITY;
+      int lab = 0;
+#pragma unroll
+      for (int c = 0; c < MAXC; ++c) {
+        if (c < C) {
+          const float logit =
+              covered ? a[v][c] / denom : (c == C - 1 ? 0.f : uni);
+          const float comb =
+              threshold ? logit : (c == C - 1 ? 1.f - bins : logit * bins);
+          if (comb > best) {
+            best = comb;
+            lab = c;
+          }
+        }
+      }
+      labels[n] = threshold && !(bins > thresh) ? empty_label : lab;
     }
-    labels[n] = threshold && !(bins > thresh) ? empty_label : lab;
   }
 }
 
 template <int MAXC, bool PROB>
-int launch(const float* pts, int N, const float* gdata, const int* box,
-           const float* sem, int P, int C, const float* pc, float gs, int GH,
-           int GW, int GD, float* acc, float* om, int* labels,
-           cudaStream_t st, bool threshold = false, float thresh = 0.f,
-           int empty_label = 0) {
-  const size_t smem = (size_t)TILE * (9 + 6 + C + 2) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      splat_kernel<MAXC, PROB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + TILE - 1) / TILE;
-  splat_kernel<MAXC, PROB><<<blocks, TILE, smem, st>>>(
-      pts, N, gdata, box, sem, P, C, pc[0], pc[1], pc[2], gs, GH, GW, GD,
-      acc, om, labels, threshold, thresh, empty_label);
+int launch(const float* pts, const float* gdata, const int* box,
+           const float* sem, int C, int GH, int GW, int GD,
+           const int* tile_start, const int* tile_items, const int* entries,
+           float* acc, float* om, int* labels, cudaStream_t st,
+           bool threshold, float thresh, int empty_label) {
+  const int tiles = ((GH + TX - 1) / TX) * ((GW + TY - 1) / TY) *
+                    ((GD + TZ - 1) / TZ);
+  if (tiles == 0) return 0;
+  splat_kernel<MAXC, PROB><<<2 * tiles, THREADS, 0, st>>>(
+      pts, gdata, box, sem, C, GH, GW, GD, tile_start, tile_items, entries,
+      acc, om,
+      labels, threshold, thresh, empty_label);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// pts [N, 3] fp32; gdata [P, 9] fp32 (mu, inverse covariance
-// [xx, yy, zz, xy, yz, xz]); box [P, 6] int32 (voxel lo xyz, hi xyz);
-// sem_aug [P, C + 2] fp32; pc_min: 3 host floats; voxel grid (GH, GW, GD)
-// of edge `gs`. Outputs acc [N, C + 2], one_minus [N], labels [N] int32
-// (or null). `label_mode` 0 ("combine") or 1 ("threshold", with `thresh`
-// and `empty_label`). Returns a cudaError_t, or -1 for C outside
-// 2..32 or an unknown mode.
-GF_EXPORT int gf_splat_forward(const void* pts, int N, const void* gdata,
-                               const void* box, const void* sem_aug, int P,
-                               int C, const float* pc_min, float gs, int GH,
-                               int GW, int GD, void* acc, void* one_minus,
-                               void* labels, int label_mode, float thresh,
-                               int empty_label, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// pts [GH * GW * GD, 3] fp32, the raster voxel grid (x slowest, z fastest);
+// gdata [P, 9] fp32 (mu, inverse covariance [xx, yy, zz, xy, yz, xz]); box
+// [P, 6] int32 (voxel lo xyz, hi xyz); sem_aug [P, C + 2] fp32; the bins of
+// splat_bin.cu (tile_start [tiles + 1], tile_items [2 tiles + 1], entries
+// [E] int32). Outputs acc
+// [N, C + 2], one_minus [N], labels [N] int32 (or null). `label_mode` 0
+// ("combine") or 1 ("threshold", with `thresh` and `empty_label`). Returns a
+// cudaError_t, or -1 for C outside 2..32 or an unknown mode.
+GF_EXPORT int gf_splat_forward(const void* pts, const void* gdata,
+                               const void* box, const void* sem_aug, int C,
+                               int GH, int GW, int GD, const void* tile_start,
+                               const void* tile_items, const void* entries,
+                               void* acc, void* one_minus, void* labels,
+                               int label_mode, float thresh, int empty_label,
+                               void* stream) {
   if (C < 2 || C > 32 || label_mode < 0 || label_mode > 1) return -1;
-  if (C == 18)
-    return launch<18, true>((const float*)pts, N, (const float*)gdata,
-                      (const int*)box, (const float*)sem_aug, P, C, pc_min,
-                      gs, GH, GW, GD, (float*)acc, (float*)one_minus,
-                      (int*)labels, st, label_mode == 1, thresh, empty_label);
-  return launch<32, true>((const float*)pts, N, (const float*)gdata,
-                    (const int*)box, (const float*)sem_aug, P, C, pc_min, gs,
-                    GH, GW, GD, (float*)acc, (float*)one_minus, (int*)labels,
-                    st, label_mode == 1, thresh, empty_label);
+  auto run = C == 18 ? launch<18, true> : launch<32, true>;
+  return run((const float*)pts, (const float*)gdata, (const int*)box,
+             (const float*)sem_aug, C, GH, GW, GD, (const int*)tile_start,
+             (const int*)tile_items, (const int*)entries, (float*)acc,
+             (float*)one_minus, (int*)labels, (cudaStream_t)stream,
+             label_mode == 1, thresh, empty_label);
 }
 
 // The additive variant: sem_aug [P, C + 2] = (sem * opa, opa, 1); outputs
 // acc [N, C + 2] and labels [N] int32 (or null), no one_minus.
-GF_EXPORT int gf_splat_forward_additive(const void* pts, int N,
-                                        const void* gdata, const void* box,
-                                        const void* sem_aug, int P, int C,
-                                        const float* pc_min, float gs, int GH,
-                                        int GW, int GD, void* acc,
+GF_EXPORT int gf_splat_forward_additive(const void* pts, const void* gdata,
+                                        const void* box, const void* sem_aug,
+                                        int C, int GH, int GW, int GD,
+                                        const void* tile_start,
+                                        const void* tile_items,
+                                        const void* entries, void* acc,
                                         void* labels, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   if (C < 2 || C > 32) return -1;
-  if (C == 18)
-    return launch<18, false>((const float*)pts, N, (const float*)gdata,
-                             (const int*)box, (const float*)sem_aug, P, C,
-                             pc_min, gs, GH, GW, GD, (float*)acc, nullptr,
-                             (int*)labels, st);
-  return launch<32, false>((const float*)pts, N, (const float*)gdata,
-                           (const int*)box, (const float*)sem_aug, P, C,
-                           pc_min, gs, GH, GW, GD, (float*)acc, nullptr,
-                           (int*)labels, st);
+  auto run = C == 18 ? launch<18, false> : launch<32, false>;
+  return run((const float*)pts, (const float*)gdata, (const int*)box,
+             (const float*)sem_aug, C, GH, GW, GD, (const int*)tile_start,
+             (const int*)tile_items, (const int*)entries, (float*)acc,
+             nullptr, (int*)labels, (cudaStream_t)stream, false, 0.f, 0);
 }

@@ -32,297 +32,389 @@
 // the per-voxel table win (gl [N, C] fp32 is 46 MB at the 200 x 200 x 16
 // grid).
 //
-// Design: the query points are the raster voxel grid (x slowest, z
-// fastest), so a Gaussian's pairs are exactly the voxels of its clipped
-// AABB and can be enumerated by raster index. One block per Gaussian walks
-// them, each thread accumulating the moments, gw and gsem[C] in registers;
-// a block reduction (shuffles, then shared memory) and one finishing thread
-// fold them into gmu, gcov, gopa and gsem. No atomics there: every
-// Gaussian's sums are reduced in a fixed order, so they are deterministic
-// (always so for prob). The TPU kernel's Morton chunking and point tiling
-// are not needed. The wrapper checks that the points are the raster grid.
-//
-// Large boxes of the additive variant: the v1 head's empty Gaussian covers
-// the whole grid (640,000 voxels) beside 25,600 boxes of 27-729 voxels, and
-// one block walking it alone would be the kernel's tail. A Gaussian whose
-// clipped box holds more than BIG_VOXELS voxels is not walked by its own
-// block: the block zeroes its output rows and appends it to a device list,
-// and a second launch on a fixed grid walks every listed box in segments of
-// SEGMENT_VOXELS voxels, one block a segment. Every output is linear in the
-// per-pair sums, so each segment folds its partial sums as a whole box would
-// and adds them to the output rows with atomics (their order, and so the
-// last bits of those rows, may change from run to run). No host read of
-// the list: the second launch's grid strides over whatever the first found.
+// Design: the query points are the raster voxel grid, and the Gaussians are
+// binned by voxel tile (splat_bin.cu; the forward's bins are reused). Two
+// launches, no atomics, so both variants are deterministic:
+//   1. one block per work item of the bins (a tile, the longest lists
+//      first, or half the entries of one whose list is more than twice the
+//      mean) copies the tile's gl rows, scal and pts into shared memory
+//      once, with cp.async (a lane reads a gl row 8 bytes at a time, which
+//      at C = 18 falls in distinct banks for neighbouring voxels), and
+//      stages its entries in chunks (cp.async double buffer). Warps take
+//      the entries in turn; the lanes enumerate the box's sub-brick of the tile directly (the whole
+//      tile for a COVERS entry), each summing the nine moments, gw and
+//      gsem[C] in registers as a per-Gaussian walk would; one transposed
+//      warp reduction (31 shuffles for 32 sums) leaves sum v in lane v, and
+//      the warp writes the entry's 10 + C sums to the entry's Gaussian-major
+//      slot of a workspace;
+//   2. the fold: a warp per Gaussian sums its slots (its tiles, in raster
+//      order) in a fixed order (lane v adds value v slot after slot for a
+//      short list, else the lanes take every 32nd slot and a transposed
+//      warp sum follows) and applies the closing math (gmu, gopa, gsem,
+//      gcov and, for prob, the det term).
+// A box as large as the grid (the v1 head's empty Gaussian) is one entry
+// per tile, like any other.
 #include <math.h>
 
-#include "common.cuh"
+#include "splat_bin.cuh"
 
 namespace {
 
+using namespace gf::splat;
+
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int CHUNK = 32;   // entries staged at once
+// a Gaussian with at most this many slots is folded slot after slot
+constexpr int SHORT_FOLD = 16;
 constexpr float NORM_3D = 0.063493635934240969f;   // (2 pi)^-1.5
-constexpr long BIG_VOXELS = 8192;    // above this a box is walked in segments
-constexpr long SEGMENT_VOXELS = 4096;  // 16 voxels a thread
-constexpr int SEGMENT_GRID_X = 160;    // the whole 200 x 200 x 16 grid at once
-constexpr int SEGMENT_GRID_Y = 4;
 
+// groups of 32 per-entry sums (9 moments, gw, gsem[C]), one per lane each
 template <int MAXC>
-struct Sums {
-  static constexpr int NV = 10 + MAXC;   // 9 moments, gw, gsem[C]
-};
-
-struct Gaussian {
-  float mx, my, mz, a0, a1, a2, a3, a4, a5, w;
-  int lo0, lo1, lo2, e1, e2;
-  long count;
-};
-
-template <bool PROB>
-__device__ __forceinline__ Gaussian load_gaussian(
-    const float* __restrict__ gdata, const float* __restrict__ opa,
-    const int* __restrict__ box, int j, int GH, int GW, int GD,
-    float* det_out, float* sqrt_det_out) {
-  Gaussian g;
-  const float* gd = gdata + 9 * (long)j;
-  g.mx = gd[0], g.my = gd[1], g.mz = gd[2];
-  g.a0 = gd[3], g.a1 = gd[4], g.a2 = gd[5];
-  g.a3 = gd[6], g.a4 = gd[7], g.a5 = gd[8];
-  const float det = g.a0 * g.a1 * g.a2 + 2.f * g.a3 * g.a4 * g.a5 -
-                    g.a0 * g.a4 * g.a4 - g.a1 * g.a5 * g.a5 -
-                    g.a2 * g.a3 * g.a3;
-  const float sqrt_det = sqrtf(fmaxf(det, 1e-30f));
-  *det_out = det;
-  *sqrt_det_out = sqrt_det;
-  g.w = PROB ? NORM_3D * sqrt_det * opa[j] : opa[j];
-  const int* bx = box + 6 * (long)j;
-  g.lo0 = max(bx[0], 0), g.lo1 = max(bx[1], 0), g.lo2 = max(bx[2], 0);
-  const int e0 = min(bx[3], GH - 1) - g.lo0 + 1;
-  g.e1 = min(bx[4], GW - 1) - g.lo1 + 1;
-  g.e2 = min(bx[5], GD - 1) - g.lo2 + 1;
-  g.count = (e0 > 0 && g.e1 > 0 && g.e2 > 0) ? (long)e0 * g.e1 * g.e2 : 0;
-  return g;
+__host__ __device__ constexpr int sum_groups() {
+  return (10 + MAXC + 31) / 32;
 }
 
-// Adds the pairs of box voxels [first, last) (raster order inside the box),
-// strided over the block's threads, to acc.
-template <int MAXC, bool PROB>
-__device__ __forceinline__ void walk(
-    float (&acc)[Sums<MAXC>::NV], const Gaussian& g, long first, long last,
-    const float* __restrict__ s_sem, const float* __restrict__ pts,
-    const float* __restrict__ gl, const float* __restrict__ scal, int C,
-    int GW, int GD) {
-  for (long i = first + threadIdx.x; i < last; i += THREADS) {
-    const int iz = (int)(i % g.e2);
-    const long r = i / g.e2;
-    const int iy = (int)(r % g.e1);
-    const int ix = (int)(r / g.e1);
-    const long n =
-        ((long)(g.lo0 + ix) * GW + (g.lo1 + iy)) * GD + (g.lo2 + iz);
-    const float dx = g.mx - pts[3 * n];
-    const float dy = g.my - pts[3 * n + 1];
-    const float dz = g.mz - pts[3 * n + 2];
-    const float logit =
-        -0.5f * (g.a0 * dx * dx + g.a1 * dy * dy + g.a2 * dz * dz) -
-        (g.a3 * dx * dy + g.a4 * dy * dz + g.a5 * dx * dz);
-    const float power = expf(fminf(logit, 30.f));
-    const float* gr = gl + n * C;
-    float dot = 0.f;
+// One step of the transposed warp sum over v[B, B + 2 O): the lanes with
+// bit O set keep the upper half (summed with their partner's), the others
+// the lower half, in v[B, B + O).
+template <int O, int B, int N>
+__device__ __forceinline__ void transpose_halve(float (&v)[N], int lane) {
+  const bool upper = lane & O;
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c)
-      if (c < C) dot += gr[c] * s_sem[c];
-    float gprob, gpower;
-    if (PROB) {
-      gprob = dot - scal[3 * n];
-      const float one_m = 1.f - fminf(power, 1.f - 1e-9f) + 1e-9f;
-      gpower = scal[3 * n + 2] + scal[3 * n + 1] / one_m + gprob * g.w;
-    } else {
-      gprob = dot;
-      gpower = gprob * g.w;
-    }
-    const float glogit = logit < 30.f ? gpower * power : 0.f;
-    acc[0] += glogit * dx;
-    acc[1] += glogit * dy;
-    acc[2] += glogit * dz;
-    acc[3] += glogit * dx * dx;
-    acc[4] += glogit * dy * dy;
-    acc[5] += glogit * dz * dz;
-    acc[6] += glogit * dx * dy;
-    acc[7] += glogit * dy * dz;
-    acc[8] += glogit * dx * dz;
-    acc[9] += gprob * power;
-    const float prob = power * g.w;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c)
-      if (c < C) acc[10 + c] += prob * gr[c];
+  for (int i = 0; i < O; ++i) {
+    const float send = upper ? v[B + i] : v[B + i + O];
+    const float keep = upper ? v[B + i + O] : v[B + i];
+    v[B + i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
   }
+  if constexpr (O > 1) transpose_halve<O / 2, B, N>(v, lane);
 }
 
-// Block-reduces acc (fixed order) and folds the sums into Gaussian j's
-// output rows: stored, or added with atomics when ATOMIC.
-template <int MAXC, bool PROB, bool ATOMIC>
-__device__ __forceinline__ void reduce_and_fold(
-    float (&acc)[Sums<MAXC>::NV], float (*s_red)[Sums<MAXC>::NV],
-    const Gaussian& g, float det, float sqrt_det, float op, int j, int C,
-    float* __restrict__ gmu, float* __restrict__ gopa,
-    float* __restrict__ gsem, float* __restrict__ gcov) {
-  constexpr int NV = Sums<MAXC>::NV;
+// After it, lane L holds in out[k] the warp's total of v[32 k + L]. A fixed
+// tree of 31 shuffles a group: each step halves the values a lane keeps.
+template <int G>
+__device__ __forceinline__ void warp_transpose_sum(float (&v)[32 * G],
+                                                   float (&out)[G]) {
+  const int lane = threadIdx.x & 31;
+  transpose_halve<16, 0, 32 * G>(v, lane);
+  out[0] = v[0];
+  if constexpr (G > 1) {
+    transpose_halve<16, 32, 32 * G>(v, lane);
+    out[1] = v[32];
+  }
+  static_assert(G <= 2, "at most 64 sums an entry");
+}
+
+template <int MAXC, bool PROB>
+__global__ void __launch_bounds__(THREADS, MAXC <= 18 ? 2 : 1)
+splat_bwd_tile_kernel(const float* __restrict__ pts,
+                      const float* __restrict__ gdata,
+                      const float* __restrict__ opa,
+                      const float* __restrict__ sem,
+                      const int* __restrict__ box,
+                      const float* __restrict__ gl,
+                      const float* __restrict__ scal, int c_arg, int GH,
+                      int GW, int GD, const int* __restrict__ tile_start,
+                      const int* __restrict__ tile_items,
+                      const int* __restrict__ entries,
+                      const int* __restrict__ slot,
+                      float* __restrict__ work) {
+  constexpr int SP = round4(MAXC);
+  constexpr int R = record_words(SP);
+  constexpr int G = sum_groups<MAXC>();
+  const int C = MAXC == 18 ? 18 : c_arg;
+  const int WS = round4(10 + C);    // workspace row stride
+  extern __shared__ __align__(16) float smem[];
+  float* s_rec = smem;                                 // [2][CHUNK * R]
+  // per voxel (x, y, z, dot_gl) and (bin_term, g_density); its gl row at a
+  // stride of C floats, read 8 bytes a lane (conflict-free for C = 18)
+  float4* s_pt = reinterpret_cast<float4*>(s_rec + 2 * CHUNK * R);
+  float2* s_sc = reinterpret_cast<float2*>(s_pt + TILE_VOXELS);
+  float* s_gl = reinterpret_cast<float*>(s_sc + (PROB ? TILE_VOXELS : 0));
+
+  const int tiles = ((GH + TX - 1) / TX) * ((GW + TY - 1) / TY) *
+                    ((GD + TZ - 1) / TZ);
+  if (blockIdx.x >= tile_items[2 * tiles]) return;
+  const int item = tile_items[blockIdx.x];
+  const int tile = item >> 2;
+  const int half = item & 3;   // 0 all the tile's entries, 1 / 2 a half
+  const Tile tl = tile_of(tile, GH, GW, GD);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    float s = acc[v];
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) s_red[warp][v] = s;
-  }
-  __syncthreads();
-  if (tid < NV) {
-    float s = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < WARPS; ++wp) s += s_red[wp][tid];
-    s_red[0][tid] = s;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const float* t = s_red[0];
-    float out[10];
-    out[0] = -(g.a0 * t[0] + g.a3 * t[1] + g.a5 * t[2]);
-    out[1] = -(g.a3 * t[0] + g.a1 * t[1] + g.a4 * t[2]);
-    out[2] = -(g.a5 * t[0] + g.a4 * t[1] + g.a2 * t[2]);
-    const float gw = t[9];
-    out[3] = PROB ? gw * NORM_3D * sqrt_det : gw;
-    const float ga[6] = {-0.5f * t[3], -0.5f * t[4], -0.5f * t[5],
-                         -t[6], -t[7], -t[8]};
-    float gdet = 0.f;
-    if (PROB && det > 1e-30f) gdet = gw * op * NORM_3D / (2.f * sqrt_det);
-    // d det / d [xx, yy, zz, xy, yz, xz] of the compact symmetric layout
-    const float dd[6] = {g.a1 * g.a2 - g.a4 * g.a4, g.a0 * g.a2 - g.a5 * g.a5,
-                         g.a0 * g.a1 - g.a3 * g.a3,
-                         2.f * (g.a4 * g.a5 - g.a2 * g.a3),
-                         2.f * (g.a3 * g.a5 - g.a0 * g.a4),
-                         2.f * (g.a3 * g.a4 - g.a1 * g.a5)};
-#pragma unroll
-    for (int e = 0; e < 6; ++e) out[4 + e] = ga[e] + gdet * dd[e];
-    float* dst[10] = {gmu + 3 * (long)j,     gmu + 3 * (long)j + 1,
-                      gmu + 3 * (long)j + 2, gopa + j,
-                      gcov + 6 * (long)j,     gcov + 6 * (long)j + 1,
-                      gcov + 6 * (long)j + 2, gcov + 6 * (long)j + 3,
-                      gcov + 6 * (long)j + 4, gcov + 6 * (long)j + 5};
-#pragma unroll
-    for (int e = 0; e < 10; ++e) {
-      if (ATOMIC)
-        atomicAdd(dst[e], out[e]);
-      else
-        *dst[e] = out[e];
+
+  // the tile's voxels, local index l = (lx * TY + ly) * TZ + lz
+  for (int idx = tid; idx < TILE_VOXELS * C; idx += THREADS) {
+    const int l = idx / C;
+    const int c = idx - l * C;
+    const int lx = l / (TY * TZ), ly = (l / TZ) % TY, lz = l % TZ;
+    if (lx < tl.ex && ly < tl.ey && lz < tl.ez) {
+      const long n = ((long)(tl.x0 + lx) * GW + tl.y0 + ly) * GD + tl.z0 + lz;
+      gf::splat::cp_async4(s_gl + idx, gl + n * C + c);
     }
   }
-  if (tid < C) {
-    if (ATOMIC)
-      atomicAdd(gsem + (long)j * C + tid, s_red[0][10 + tid]);
-    else
-      gsem[(long)j * C + tid] = s_red[0][10 + tid];
+  for (int idx = tid; idx < TILE_VOXELS * 3; idx += THREADS) {
+    const int l = idx / 3;
+    const int a = idx - l * 3;
+    const int lx = l / (TY * TZ), ly = (l / TZ) % TY, lz = l % TZ;
+    if (lx < tl.ex && ly < tl.ey && lz < tl.ez) {
+      const long n = ((long)(tl.x0 + lx) * GW + tl.y0 + ly) * GD + tl.z0 + lz;
+      float* pt = reinterpret_cast<float*>(s_pt + l);
+      gf::splat::cp_async4(pt + a, pts + 3 * n + a);
+      if (PROB) {
+        float* sc = reinterpret_cast<float*>(s_sc + l);
+        gf::splat::cp_async4(a == 0 ? pt + 3 : sc + a - 1, scal + 3 * n + a);
+      }
+    }
+  }
+
+  const int mid = (tile_start[tile + 1] - tile_start[tile]) / 2;
+  const int first = tile_start[tile] + (half == 2 ? mid : 0);
+  const int total =
+      half == 1 ? mid : tile_start[tile + 1] - first;
+  const int nch = (total + CHUNK - 1) / CHUNK;
+  if (nch > 0)
+    stage_entries<SP, THREADS>(s_rec, entries, first, min(CHUNK, total),
+                               gdata, opa, box, sem, C, slot);
+  gf::cp_async_commit();
+  for (int k = 0; k < nch; ++k) {
+    if (k + 1 < nch) {
+      const int f = first + (k + 1) * CHUNK;
+      stage_entries<SP, THREADS>(s_rec + ((k + 1) & 1) * CHUNK * R, entries,
+                                 f, min(CHUNK, first + total - f), gdata, opa,
+                                 box, sem, C, slot);
+    }
+    gf::cp_async_commit();
+    gf::cp_async_wait<1>();
+    __syncthreads();
+    const float* buf = s_rec + (k & 1) * CHUNK * R;
+    const int cnt = min(CHUNK, total - k * CHUNK);
+    for (int s = warp; s < cnt; s += WARPS) {
+      const float* rec = buf + s * R;
+      const int4 b0 = *reinterpret_cast<const int4*>(rec + 12);  // lo, hi.x
+      const int4 b1 = *reinterpret_cast<const int4*>(rec + 16);  // hi.yz, e
+      // the box's sub-brick of the tile, in the tile's coordinates
+      const int lo0 = max(b0.x - tl.x0, 0), hi0 = min(b0.w - tl.x0, tl.ex - 1);
+      const int lo1 = max(b0.y - tl.y0, 0), hi1 = min(b1.x - tl.y0, tl.ey - 1);
+      const int lo2 = max(b0.z - tl.z0, 0), hi2 = min(b1.y - tl.z0, tl.ez - 1);
+      const int e1 = hi1 - lo1 + 1, e2 = hi2 - lo2 + 1;
+      const int count = (hi0 - lo0 + 1) * e1 * e2;
+      // exact for sub-bricks of up to 1024 voxels: the quotient's fraction
+      // stays >= 1/32 from an integer
+      const float inv1 = 1.f / (float)e1, inv2 = 1.f / (float)e2;
+
+      const float4 g0 = *reinterpret_cast<const float4*>(rec);
+      const float4 g1 = *reinterpret_cast<const float4*>(rec + 4);
+      const float4 g2 = *reinterpret_cast<const float4*>(rec + 8);
+      const float mx = g0.x, my = g0.y, mz = g0.z;
+      const float a0 = g0.w, a1 = g1.x, a2 = g1.y, a3 = g1.z, a4 = g1.w,
+                  a5 = g2.x, op = g2.y;
+      const float det = a0 * a1 * a2 + 2.f * a3 * a4 * a5 - a0 * a4 * a4 -
+                        a1 * a5 * a5 - a2 * a3 * a3;
+      const float w = PROB ? NORM_3D * sqrtf(fmaxf(det, 1e-30f)) * op : op;
+      float sm[MAXC];
+#pragma unroll
+      for (int c = 0; c < MAXC; ++c) sm[c] = c < C ? rec[20 + c] : 0.f;
+
+      float acc[32 * G];
+#pragma unroll
+      for (int v = 0; v < 32 * G; ++v) acc[v] = 0.f;
+      // lane's voxel i = r e2 + iz of the sub-brick, r = ix e1 + iy; the
+      // lanes step 32 voxels at a time
+      const int step_r = (int)(32.5f * inv2), step_z = 32 - step_r * e2;
+      int r = (int)(((float)lane + 0.5f) * inv2);
+      int iz = lane - r * e2;
+      for (int i = lane; i < count; i += 32) {
+        const int ix = (int)(((float)r + 0.5f) * inv1);
+        const int iy = r - ix * e1;
+        const int l = ((lo0 + ix) * TY + lo1 + iy) * TZ + lo2 + iz;
+        r += step_r;
+        iz += step_z;
+        if (iz >= e2) {
+          iz -= e2;
+          ++r;
+        }
+        const float4 pt = s_pt[l];
+        const float dx = mx - pt.x;
+        const float dy = my - pt.y;
+        const float dz = mz - pt.z;
+        const float logit = -0.5f * (a0 * dx * dx + a1 * dy * dy +
+                                     a2 * dz * dz) -
+                            (a3 * dx * dy + a4 * dy * dz + a5 * dx * dz);
+        const float power = expf(fminf(logit, 30.f));
+        float gr[MAXC];
+        if constexpr (MAXC % 2 == 0 && MAXC <= 18) {
+          const float2* g2 = reinterpret_cast<const float2*>(s_gl + l * C);
+#pragma unroll
+          for (int c = 0; c < MAXC / 2; ++c) {
+            const float2 q = g2[c];
+            gr[2 * c] = q.x;
+            gr[2 * c + 1] = q.y;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < MAXC; ++c) gr[c] = c < C ? s_gl[l * C + c] : 0.f;
+        }
+        float dot = 0.f;
+#pragma unroll
+        for (int c = 0; c < MAXC; ++c)
+          if (c < C) dot += gr[c] * sm[c];
+        float gprob, gpower;
+        if (PROB) {
+          const float2 sc = s_sc[l];
+          gprob = dot - pt.w;
+          const float one_m = 1.f - fminf(power, 1.f - 1e-9f) + 1e-9f;
+          // the hardware's reciprocal (2 ulp) in place of an IEEE division,
+          // which cost a third of the launch; the exponent stays accurate
+          // (the moments cancel, and __expf's error grows with |logit|)
+          gpower = sc.y + __fdividef(sc.x, one_m) + gprob * w;
+        } else {
+          gprob = dot;
+          gpower = gprob * w;
+        }
+        const float glogit = logit < 30.f ? gpower * power : 0.f;
+        const float gx = glogit * dx, gy = glogit * dy, gz = glogit * dz;
+        acc[0] += gx;
+        acc[1] += gy;
+        acc[2] += gz;
+        acc[3] += gx * dx;
+        acc[4] += gy * dy;
+        acc[5] += gz * dz;
+        acc[6] += gx * dy;
+        acc[7] += gy * dz;
+        acc[8] += gx * dz;
+        acc[9] += gprob * power;
+        const float prob = power * w;
+#pragma unroll
+        for (int c = 0; c < MAXC; ++c)
+          if (c < C) acc[10 + c] += prob * gr[c];
+      }
+      float tot[G];
+      warp_transpose_sum<G>(acc, tot);
+      float* dst = work + (long)b1.w * WS;
+#pragma unroll
+      for (int k2 = 0; k2 < G; ++k2)
+        if (32 * k2 + lane < 10 + C) dst[32 * k2 + lane] = tot[k2];
+    }
+    __syncthreads();   // the buffer is staged again two chunks on
   }
 }
 
-// One block per Gaussian. `big` (additive only): big[0] counts, big[1..]
-// lists the Gaussians left to splat_bwd_segments.
+// A warp per Gaussian: its slots summed in order, then the closing math.
 template <int MAXC, bool PROB>
 __global__ void __launch_bounds__(THREADS)
-splat_bwd_kernel(const float* __restrict__ pts,
-                 const float* __restrict__ gdata,
-                 const float* __restrict__ opa, const float* __restrict__ sem,
-                 const int* __restrict__ box, const float* __restrict__ gl,
-                 const float* __restrict__ scal, int P, int C, int GH,
-                 int GW, int GD, float* __restrict__ gmu,
-                 float* __restrict__ gopa, float* __restrict__ gsem,
-                 float* __restrict__ gcov, int* __restrict__ big) {
-  constexpr int NV = Sums<MAXC>::NV;
-  __shared__ float s_red[WARPS][NV];
-  __shared__ float s_sem[MAXC];
-
-  const int j = blockIdx.x;
-  const int tid = threadIdx.x;
-  float det, sqrt_det;
-  const Gaussian g =
-      load_gaussian<PROB>(gdata, opa, box, j, GH, GW, GD, &det, &sqrt_det);
-  if (!PROB && g.count > BIG_VOXELS) {
-    if (tid == 0) big[1 + atomicAdd(big, 1)] = j;
-    if (tid < 3) gmu[3 * (long)j + tid] = 0.f;
-    if (tid < 6) gcov[6 * (long)j + tid] = 0.f;
-    if (tid == 0) gopa[j] = 0.f;
-    if (tid < C) gsem[(long)j * C + tid] = 0.f;
-    return;
-  }
-  if (tid < MAXC) s_sem[tid] = tid < C ? sem[(long)j * C + tid] : 0.f;
-  __syncthreads();
-
-  float acc[NV];
+splat_bwd_fold_kernel(const float* __restrict__ gdata,
+                      const float* __restrict__ opa, int P, int c_arg,
+                      const int* __restrict__ gauss_start,
+                      const float* __restrict__ work,
+                      float* __restrict__ gmu, float* __restrict__ gopa,
+                      float* __restrict__ gsem, float* __restrict__ gcov) {
+  constexpr int G = sum_groups<MAXC>();
+  const int C = MAXC == 18 ? 18 : c_arg;
+  const int WS = round4(10 + C);
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (j >= P) return;   // the whole warp
+  const int first = gauss_start[j], end = gauss_start[j + 1];
+  float tot[G];
+  if (end - first <= SHORT_FOLD) {
+    // lane v sums value v over the slots in order
 #pragma unroll
-  for (int v = 0; v < NV; ++v) acc[v] = 0.f;
-  walk<MAXC, PROB>(acc, g, 0, g.count, s_sem, pts, gl, scal, C, GW, GD);
-  reduce_and_fold<MAXC, PROB, false>(acc, s_red, g, det, sqrt_det, opa[j], j,
-                                     C, gmu, gopa, gsem, gcov);
-}
-
-// The listed large boxes of the additive variant, one block a segment of
-// SEGMENT_VOXELS voxels; the grid strides over segments (x) and boxes (y).
-template <int MAXC>
-__global__ void __launch_bounds__(THREADS)
-splat_bwd_segments(const float* __restrict__ pts,
-                 const float* __restrict__ gdata,
-                 const float* __restrict__ opa, const float* __restrict__ sem,
-                 const int* __restrict__ box, const float* __restrict__ gl,
-                 int C, int GH, int GW, int GD, float* __restrict__ gmu,
-                 float* __restrict__ gopa, float* __restrict__ gsem,
-                 float* __restrict__ gcov, const int* __restrict__ big) {
-  constexpr int NV = Sums<MAXC>::NV;
-  __shared__ float s_red[WARPS][NV];
-  __shared__ float s_sem[MAXC];
-  const int tid = threadIdx.x;
-  const int n_big = big[0];
-  for (int b = blockIdx.y; b < n_big; b += gridDim.y) {
-    const int j = big[1 + b];
-    float det, sqrt_det;
-    const Gaussian g =
-        load_gaussian<false>(gdata, opa, box, j, GH, GW, GD, &det, &sqrt_det);
-    __syncthreads();   // the previous round's s_sem and s_red are read
-    if (tid < MAXC) s_sem[tid] = tid < C ? sem[(long)j * C + tid] : 0.f;
-    __syncthreads();
-    for (long first = (long)blockIdx.x * SEGMENT_VOXELS; first < g.count;
-         first += (long)gridDim.x * SEGMENT_VOXELS) {
-      const long last =
-          first + SEGMENT_VOXELS < g.count ? first + SEGMENT_VOXELS : g.count;
-      float acc[NV];
-#pragma unroll
-      for (int v = 0; v < NV; ++v) acc[v] = 0.f;
-      walk<MAXC, false>(acc, g, first, last, s_sem, pts, gl, nullptr, C, GW,
-                        GD);
-      __syncthreads();   // the previous segment's s_red is read
-      reduce_and_fold<MAXC, false, true>(acc, s_red, g, det, sqrt_det, 0.f, j,
-                                         C, gmu, gopa, gsem, gcov);
+    for (int k = 0; k < G; ++k) {
+      const int v = 32 * k + lane;
+      float s = 0.f;
+      if (v < 10 + C)
+        for (int e = first; e < end; ++e) s += work[(long)e * WS + v];
+      tot[k] = s;
     }
+  } else {
+    // lane L sums slots L, L + 32, ...; then the transposed warp sum
+    float acc[32 * G];
+#pragma unroll
+    for (int v = 0; v < 32 * G; ++v) acc[v] = 0.f;
+    for (int e = first + lane; e < end; e += 32) {
+      const float* row = work + (long)e * WS;
+      if constexpr (MAXC == 18) {
+#pragma unroll
+        for (int q = 0; q < 7; ++q) {
+          const float4 t = reinterpret_cast<const float4*>(row)[q];
+          acc[4 * q] += t.x;
+          acc[4 * q + 1] += t.y;
+          acc[4 * q + 2] += t.z;
+          acc[4 * q + 3] += t.w;
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < 10 + MAXC; ++v)
+          if (v < 10 + C) acc[v] += row[v];
+      }
+    }
+    warp_transpose_sum<G>(acc, tot);
   }
+  float t[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) t[i] = __shfl_sync(0xffffffffu, tot[0], i);
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const int c = 32 * k + lane - 10;
+    if (c >= 0 && c < C) gsem[(long)j * C + c] = tot[k];
+  }
+  if (lane != 0) return;
+  const float* gd = gdata + 9 * (long)j;
+  const float a0 = gd[3], a1 = gd[4], a2 = gd[5], a3 = gd[6], a4 = gd[7],
+              a5 = gd[8];
+  const float det = a0 * a1 * a2 + 2.f * a3 * a4 * a5 - a0 * a4 * a4 -
+                    a1 * a5 * a5 - a2 * a3 * a3;
+  const float sqrt_det = sqrtf(fmaxf(det, 1e-30f));
+  gmu[3 * (long)j] = -(a0 * t[0] + a3 * t[1] + a5 * t[2]);
+  gmu[3 * (long)j + 1] = -(a3 * t[0] + a1 * t[1] + a4 * t[2]);
+  gmu[3 * (long)j + 2] = -(a5 * t[0] + a4 * t[1] + a2 * t[2]);
+  const float gw = t[9];
+  gopa[j] = PROB ? gw * NORM_3D * sqrt_det : gw;
+  const float ga[6] = {-0.5f * t[3], -0.5f * t[4], -0.5f * t[5],
+                       -t[6], -t[7], -t[8]};
+  float gdet = 0.f;
+  if (PROB && det > 1e-30f) gdet = gw * opa[j] * NORM_3D / (2.f * sqrt_det);
+  // d det / d [xx, yy, zz, xy, yz, xz] of the compact symmetric layout
+  const float dd[6] = {a1 * a2 - a4 * a4, a0 * a2 - a5 * a5,
+                       a0 * a1 - a3 * a3, 2.f * (a4 * a5 - a2 * a3),
+                       2.f * (a3 * a5 - a0 * a4), 2.f * (a3 * a4 - a1 * a5)};
+#pragma unroll
+  for (int e = 0; e < 6; ++e) gcov[6 * (long)j + e] = ga[e] + gdet * dd[e];
 }
 
 template <int MAXC, bool PROB>
 int launch(const float* pts, const float* gdata, const float* opa,
            const float* sem, const int* box, const float* gl,
            const float* scal, int P, int C, int GH, int GW, int GD,
-           float* gmu, float* gopa, float* gsem, float* gcov, int* big,
-           cudaStream_t st) {
-  if (P == 0) return 0;
-  splat_bwd_kernel<MAXC, PROB><<<P, THREADS, 0, st>>>(
-      pts, gdata, opa, sem, box, gl, scal, P, C, GH, GW, GD, gmu, gopa, gsem,
-      gcov, big);
-  cudaError_t err = cudaGetLastError();
-  if (PROB || err != cudaSuccess) return (int)err;
-  const dim3 grid(SEGMENT_GRID_X, SEGMENT_GRID_Y);
-  splat_bwd_segments<MAXC><<<grid, THREADS, 0, st>>>(
-      pts, gdata, opa, sem, box, gl, C, GH, GW, GD, gmu, gopa, gsem, gcov,
-      big);
-  return (int)cudaGetLastError();
+           const int* tile_start, const int* tile_items, const int* entries,
+           const int* slot,
+           const int* gauss_start, float* work, float* gmu, float* gopa,
+           float* gsem, float* gcov, int parts, cudaStream_t st) {
+  constexpr int R = record_words(round4(MAXC));
+  const int tiles = ((GH + TX - 1) / TX) * ((GW + TY - 1) / TY) *
+                    ((GD + TZ - 1) / TZ);
+  if ((parts & 1) && tiles > 0) {
+    const size_t smem =
+        (size_t)(2 * CHUNK * R + TILE_VOXELS * (4 + (PROB ? 2 : 0) + C)) *
+        sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        splat_bwd_tile_kernel<MAXC, PROB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    splat_bwd_tile_kernel<MAXC, PROB><<<2 * tiles, THREADS, smem, st>>>(
+        pts, gdata, opa, sem, box, gl, scal, C, GH, GW, GD, tile_start,
+        tile_items, entries, slot, work);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if ((parts & 2) && P > 0) {
+    splat_bwd_fold_kernel<MAXC, PROB><<<(P + WARPS - 1) / WARPS, THREADS, 0,
+                                        st>>>(gdata, opa, P, C, gauss_start,
+                                              work, gmu, gopa, gsem, gcov);
+    return (int)cudaGetLastError();
+  }
+  return 0;
 }
 
 }  // namespace
@@ -330,48 +422,46 @@ int launch(const float* pts, const float* gdata, const float* opa,
 // pts [GH * GW * GD, 3] fp32, the raster voxel grid (x slowest, z fastest);
 // gdata [P, 9] fp32 (mu, inverse covariance [xx, yy, zz, xy, yz, xz]);
 // opa [P]; sem [P, C]; box [P, 6] int32 (voxel lo xyz, hi xyz); gl [N, C]
-// and scal [N, 3] = (dot_gl, bin_term, g_density) fp32. Outputs gmu [P, 3],
-// gopa [P], gsem [P, C], gcov [P, 6] fp32, fully written.
-// Returns a cudaError_t, or -1 for C outside 2..32.
-GF_EXPORT int gf_splat_backward(const void* pts, const void* gdata,
-                                const void* opa, const void* sem,
-                                const void* box, const void* gl,
-                                const void* scal, int P, int C, int GH,
-                                int GW, int GD, void* gmu, void* gopa,
-                                void* gsem, void* gcov, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// and scal [N, 3] = (dot_gl, bin_term, g_density) fp32; the bins of
+// splat_bin.cu (tile_start [tiles + 1], tile_items [2 tiles + 1], entries
+// [E], slot [E], gauss_start [P + 1], int32); work [E, round4(10 + C)] fp32
+// scratch.
+// Outputs gmu [P, 3], gopa [P], gsem [P, C], gcov [P, 6] fp32, fully
+// written. `parts`: 3 runs both launches; 1 the tile launch alone, 2 the
+// fold alone (for timing them apart). Returns a cudaError_t, or -1 for C
+// outside 2..32.
+GF_EXPORT int gf_splat_backward(
+    const void* pts, const void* gdata, const void* opa, const void* sem,
+    const void* box, const void* gl, const void* scal, int P, int C, int GH,
+    int GW, int GD, const void* tile_start, const void* tile_items,
+    const void* entries, const void* slot, const void* gauss_start,
+    void* work, void* gmu, void* gopa, void* gsem, void* gcov, int parts,
+    void* stream) {
   if (C < 2 || C > 32) return -1;
-  if (C == 18)
-    return launch<18, true>(
-        (const float*)pts, (const float*)gdata, (const float*)opa,
-        (const float*)sem, (const int*)box, (const float*)gl,
-        (const float*)scal, P, C, GH, GW, GD, (float*)gmu, (float*)gopa,
-        (float*)gsem, (float*)gcov, nullptr, st);
-  return launch<32, true>(
-      (const float*)pts, (const float*)gdata, (const float*)opa,
-      (const float*)sem, (const int*)box, (const float*)gl,
-      (const float*)scal, P, C, GH, GW, GD, (float*)gmu, (float*)gopa,
-      (float*)gsem, (float*)gcov, nullptr, st);
+  auto run = C == 18 ? launch<18, true> : launch<32, true>;
+  return run((const float*)pts, (const float*)gdata, (const float*)opa,
+             (const float*)sem, (const int*)box, (const float*)gl,
+             (const float*)scal, P, C, GH, GW, GD, (const int*)tile_start,
+             (const int*)tile_items, (const int*)entries, (const int*)slot,
+             (const int*)gauss_start, (float*)work, (float*)gmu,
+             (float*)gopa, (float*)gsem, (float*)gcov, parts,
+             (cudaStream_t)stream);
 }
 
-// The additive variant: gl [N, C] is the logits cotangent itself, there are
-// no per-voxel scalars, and `big` is an int32 scratch of P + 1 entries whose
-// first entry the caller has set to 0 (the list of large boxes).
+// The additive variant: gl [N, C] is the logits cotangent itself and there
+// are no per-voxel scalars.
 GF_EXPORT int gf_splat_backward_additive(
     const void* pts, const void* gdata, const void* opa, const void* sem,
     const void* box, const void* gl, int P, int C, int GH, int GW, int GD,
-    void* gmu, void* gopa, void* gsem, void* gcov, void* big, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+    const void* tile_start, const void* tile_items, const void* entries,
+    const void* slot, const void* gauss_start, void* work, void* gmu,
+    void* gopa, void* gsem, void* gcov, int parts, void* stream) {
   if (C < 2 || C > 32) return -1;
-  if (C == 18)
-    return launch<18, false>(
-        (const float*)pts, (const float*)gdata, (const float*)opa,
-        (const float*)sem, (const int*)box, (const float*)gl, nullptr, P, C,
-        GH, GW, GD, (float*)gmu, (float*)gopa, (float*)gsem, (float*)gcov,
-        (int*)big, st);
-  return launch<32, false>(
-      (const float*)pts, (const float*)gdata, (const float*)opa,
-      (const float*)sem, (const int*)box, (const float*)gl, nullptr, P, C, GH,
-      GW, GD, (float*)gmu, (float*)gopa, (float*)gsem, (float*)gcov,
-      (int*)big, st);
+  auto run = C == 18 ? launch<18, false> : launch<32, false>;
+  return run((const float*)pts, (const float*)gdata, (const float*)opa,
+             (const float*)sem, (const int*)box, (const float*)gl, nullptr,
+             P, C, GH, GW, GD, (const int*)tile_start, (const int*)tile_items,
+             (const int*)entries, (const int*)slot, (const int*)gauss_start,
+             (float*)work, (float*)gmu, (float*)gopa, (float*)gsem,
+             (float*)gcov, parts, (cudaStream_t)stream);
 }

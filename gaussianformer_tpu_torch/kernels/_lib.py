@@ -34,9 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel since the last :func:`reset_launches`
-LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat": 0,
-            "splat_additive": 0, "dcn_bwd": 0, "deformable_bwd": 0,
-            "splat_bwd": 0, "splat_bwd_additive": 0}
+LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
+            "splat": 0, "splat_additive": 0, "dcn_bwd": 0,
+            "deformable_bwd": 0, "splat_bwd": 0, "splat_bwd_additive": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -149,8 +149,7 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(P), ctypes.POINTER(I), ctypes.POINTER(I), I, I,
         P, P, P, I, I, I, I, I, I, P]
     so.gf_deformable_forward.restype = I
-    so.gf_splat_forward.argtypes = [P, I, P, P, P, I, I,
-                                    ctypes.POINTER(F), F, I, I, I,
+    so.gf_splat_forward.argtypes = [P, P, P, P, I, I, I, I, P, P, P,
                                     P, P, P, I, F, I, P]
     so.gf_splat_forward.restype = I
     so.gf_dcn_backward.argtypes = [P, P, I, P, I, P, P, P, P, P, P,
@@ -164,15 +163,23 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(I), I, I, P, P, P, P, P, I, I, I, I, I, I, P]
     so.gf_deformable_backward.restype = I
     so.gf_splat_backward.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
-                                     P, P, P, P, P]
+                                     P, P, P, P, P, P, P, P, P, P, I, P]
     so.gf_splat_backward.restype = I
-    so.gf_splat_forward_additive.argtypes = [P, I, P, P, P, I, I,
-                                             ctypes.POINTER(F), F, I, I, I,
-                                             P, P, P]
+    so.gf_splat_forward_additive.argtypes = [P, P, P, P, I, I, I, I, P, P,
+                                             P, P, P, P]
     so.gf_splat_forward_additive.restype = I
     so.gf_splat_backward_additive.argtypes = [P, P, P, P, P, P, I, I, I, I,
-                                              I, P, P, P, P, P, P]
+                                              I, P, P, P, P, P, P, P, P, P,
+                                              P, I, P]
     so.gf_splat_backward_additive.restype = I
+    so.gf_splat_tile_dims.argtypes = [ctypes.POINTER(I)]
+    so.gf_splat_tile_dims.restype = None
+    so.gf_splat_bin_count.argtypes = [P, I, P, I, ctypes.POINTER(F), F, I, I,
+                                      I, P, P, ctypes.POINTER(I), P]
+    so.gf_splat_bin_count.restype = I
+    so.gf_splat_bin_build.argtypes = [P, I, I, I, I, P, P, I, P, P, P, P, P,
+                                      P, P]
+    so.gf_splat_bin_build.restype = I
     return so
 
 

@@ -26,10 +26,17 @@ argmax (``"combine"``) or the normalised semantics' argmax where the
 occupancy exceeds ``thresh`` and ``empty_label`` elsewhere (``"threshold"``);
 for ``additive`` the first-index argmax of the raw sums (0 where no box
 holds the voxel). ``grid`` is an ``ops.splat.SplatGridSpec``.
+
+Both kernels take the points as the raster voxel grid and the Gaussians
+binned by voxel tile (:class:`SplatBins`, built on the card by
+``csrc/splat_bin.cu`` through :func:`bin_gaussians_cuda`; plain version
+:func:`bin_gaussians_plain`). The forward builds the bins, the autograd
+function keeps them for the backward.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -132,11 +139,191 @@ def splat_accumulate_plain(points, gdata, box, sem_aug, grid,
                                            empty_label)
 
 
+#: voxels of a tile along x, y and z (``TX``, ``TY``, ``TZ`` of
+#: ``csrc/splat_bin.cuh``)
+TILE = (8, 8, 16)
+#: the entry's flag: the box holds every voxel of the tile (the sign bit)
+COVERS = -2 ** 31
+#: Gaussians a block of the binning's count and expand launches (``GBLOCK``
+#: of ``csrc/splat_bin.cu``), which sizes its scratch
+GBLOCK = 256
+
+
+def tile_counts(grid) -> tuple:
+    """Tiles along x, y and z (partial bricks at the far edges count)."""
+    return tuple(-(-n // t) for n, t in zip((grid.H, grid.W, grid.D), TILE))
+
+
+@dataclasses.dataclass(frozen=True)
+class SplatBins:
+    """The Gaussians of one splat binned by voxel tile (tiles numbered in
+    raster order, x slowest). ``entries`` [E] int32 is tile-major: tile t's
+    Gaussians are ``entries[tile_start[t]:tile_start[t + 1]]`` in ascending
+    index order, each with :data:`COVERS` or-ed in (the sign bit) where its
+    box holds the whole tile. ``slot`` [E] int32 is each entry's position in
+    the Gaussian-major order, where Gaussian g's entries are
+    ``gauss_start[g]:gauss_start[g + 1]``, its tiles in raster order.
+    ``tile_items`` [2 T + 1] int32: the kernels' work items, one block
+    each: the tiles by descending list length (ties by index), a tile whose
+    list is longer than twice the mean as two halves; item = 4 t + (0 the
+    whole tile, 1 / 2 a half); ``tile_items[2 T]`` counts them, the rest is
+    -1."""
+    tile_start: torch.Tensor
+    tile_items: torch.Tensor
+    entries: torch.Tensor
+    slot: torch.Tensor
+    gauss_start: torch.Tensor
+    grid_dims: tuple
+
+    @property
+    def num_entries(self) -> int:
+        return self.entries.shape[0]
+
+    def gaussians(self):
+        return self.entries & 0x7FFFFFFF
+
+    def covers(self):
+        return self.entries < 0
+
+    def stats(self) -> dict:
+        """Entries, the COVERS share and the tiles' mean and largest list
+        lengths (a host read)."""
+        lengths = (self.tile_start[1:] - self.tile_start[:-1]).float()
+        e = self.num_entries
+        return dict(entries=e, tiles=lengths.numel(),
+                    covers_share=(self.covers().sum().item() / e if e
+                                  else 0.0),
+                    mean_list=lengths.mean().item(),
+                    max_list=int(lengths.max().item()))
+
+
+def _check_bins(name, bins, grid, p):
+    if (bins.grid_dims != (grid.H, grid.W, grid.D)
+            or bins.gauss_start.shape[0] != p + 1):
+        raise ValueError(f"{name}: the bins are not of this grid and these "
+                         f"{p} Gaussians")
+
+
+def _work_items(tile_start):
+    """The work items of :class:`SplatBins` from the tiles' starts."""
+    lengths = tile_start[1:] - tile_start[:-1]
+    tiles = lengths.shape[0]
+    total = int(tile_start[-1])
+    order = torch.argsort(-lengths, stable=True)
+    split = lengths[order] * tiles > 2 * total
+    code = torch.stack([torch.where(split, 4 * order + 1, 4 * order),
+                        torch.where(split, 4 * order + 2, -1)], -1)
+    items = code.reshape(-1)
+    items = items[items >= 0]
+    pad = torch.full((2 * tiles - items.shape[0],), -1,
+                     dtype=items.dtype, device=items.device)
+    return torch.cat([items, pad, items.new_tensor([items.shape[0]])])
+
+
+def bin_gaussians_plain(box, grid) -> SplatBins:
+    """The bins of :class:`SplatBins` by plain tensor operations (each box
+    clipped to the grid, its tiles enumerated, a stable sort by tile)."""
+    dev = box.device
+    dims = torch.tensor([grid.H, grid.W, grid.D], device=dev)
+    tile = torch.tensor(TILE, device=dev)
+    nt = tile_counts(grid)
+    b = box.long()
+    lo = b[:, :3].clamp_min(0)
+    hi = torch.minimum(b[:, 3:], dims - 1)
+    meets = (lo <= hi).all(-1)
+    tlo = lo // tile
+    ext = torch.where(meets[:, None], hi // tile - tlo + 1,
+                      torch.zeros_like(tlo))
+    count = ext.prod(-1)
+    gauss_start = torch.cat([count.new_zeros(1), count.cumsum(0)])
+    g = torch.repeat_interleave(torch.arange(b.shape[0], device=dev), count)
+    k = torch.arange(g.shape[0], device=dev) - gauss_start[g]
+    e = ext[g]
+    iz = k % e[:, 2]
+    r = k // e[:, 2]
+    t3 = tlo[g] + torch.stack([r // e[:, 1], r % e[:, 1], iz], -1)
+    key = (t3[:, 0] * nt[1] + t3[:, 1]) * nt[2] + t3[:, 2]
+    t_lo = t3 * tile
+    t_hi = torch.minimum(t_lo + tile, dims) - 1
+    covers = ((b[g, :3] <= t_lo) & (b[g, 3:] >= t_hi)).all(-1)
+    sorted_key, order = torch.sort(key, stable=True)
+    vals = torch.where(covers, g + COVERS, g)
+    tile_start = torch.searchsorted(
+        sorted_key, torch.arange(nt[0] * nt[1] * nt[2] + 1, device=dev))
+    i32 = torch.int32
+    return SplatBins(tile_start.to(i32), _work_items(tile_start).to(i32),
+                     vals[order].to(i32), order.to(i32), gauss_start.to(i32),
+                     (grid.H, grid.W, grid.D))
+
+
+def bin_counts_cuda(points, box, grid):
+    """The binning's first call: (counts [P], meta, the entry total), the
+    total read to the host (the binning's one host read, which
+    synchronises the stream). Raises ``ValueError`` unless the points are
+    the raster voxel grid."""
+    name = "splat_bins"
+    _lib.require_cuda(name, points=points, box=box)
+    _lib.require_dtype(name, "points", points, torch.float32)
+    _lib.require_dtype(name, "box", box, torch.int32)
+    p = box.shape[0]
+    if box.shape != (p, 6):
+        raise ValueError(f"{name}: bad box shape {tuple(box.shape)}")
+    if points.shape != (grid.num_voxels, 3):
+        raise ValueError(f"{name}: points are not the {grid.H}x{grid.W}x"
+                         f"{grid.D} voxel grid")
+    i32 = dict(dtype=torch.int32, device=points.device)
+    counts = torch.empty(p, **i32)
+    meta = torch.empty(-(-p // GBLOCK) + 2, **i32)
+    total = ctypes.c_int()
+    pc = (ctypes.c_float * 3)(*grid.pc_min)
+    _lib.check(_lib.lib().gf_splat_bin_count(
+        points.data_ptr(), points.shape[0], box.data_ptr(), p, pc,
+        float(grid.grid_size), grid.H, grid.W, grid.D, counts.data_ptr(),
+        meta.data_ptr(), ctypes.byref(total), _lib.stream_ptr(points)), name)
+    if total.value < 0:
+        raise ValueError(f"{name}: points are not the voxel grid in raster "
+                         f"order")
+    return counts, meta, total.value
+
+
+def bin_gaussians_cuda(points, box, grid) -> SplatBins:
+    """Launch ``csrc/splat_bin.cu``: count each box's tiles (and check that
+    the points are the raster voxel grid, one per voxel, x slowest), scan,
+    read the entry total; then, in one call, expand, sort stably by tile
+    (a counting sort) and make the work items. One host read. Raises
+    ``ValueError`` for other points; grids of more than 4096 tiles are not
+    taken."""
+    name = "splat_bins"
+    counts, meta, total = bin_counts_cuda(points, box, grid)
+    p = box.shape[0]
+    nt = tile_counts(grid)
+    tiles = nt[0] * nt[1] * nt[2]
+    i32 = dict(dtype=torch.int32, device=points.device)
+    # the counting sort's scratch: keys, values and a count per tile for
+    # each block of GBLOCK Gaussians
+    ws = torch.empty(2 * total + tiles * -(-p // GBLOCK), **i32)
+    out = torch.empty(p + 1 + 2 * total + 3 * tiles + 2, **i32)
+    gauss_start, rest = out[:p + 1], out[p + 1:]
+    entries, slot = rest[:total], rest[total:2 * total]
+    tile_start = rest[2 * total:2 * total + tiles + 1]
+    tile_items = rest[2 * total + tiles + 1:]
+    _lib.check(_lib.lib().gf_splat_bin_build(
+        box.data_ptr(), p, grid.H, grid.W, grid.D, counts.data_ptr(),
+        meta.data_ptr(), total, ws.data_ptr(), gauss_start.data_ptr(),
+        entries.data_ptr(), slot.data_ptr(), tile_start.data_ptr(),
+        tile_items.data_ptr(), _lib.stream_ptr(points)), name)
+    _lib.LAUNCHES["splat_bin"] += 1
+    return SplatBins(tile_start, tile_items, entries, slot, gauss_start,
+                     (grid.H, grid.W, grid.D))
+
+
 def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
                           variant: str = "prob", *,
                           label_mode: str = "combine", thresh: float = 0.5,
-                          empty_label: int = 17):
-    """Launch ``csrc/splat.cu``: one block of 256 points per tile."""
+                          empty_label: int = 17, bins: SplatBins = None):
+    """Launch ``csrc/splat.cu``: one block per voxel tile over the tile's
+    binned Gaussians. The points must be the raster voxel grid. ``bins``:
+    this splat's :class:`SplatBins`, built here when not given."""
     _check_variant(variant, label_mode)
     name = "splat_accumulate"
     _lib.require_cuda(name, points=points, gdata=gdata, box=box,
@@ -151,40 +338,45 @@ def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
     if (points.shape != (n, 3) or gdata.shape != (p, 9)
             or box.shape != (p, 6) or sem_aug.shape[0] != p):
         raise ValueError(f"{name}: bad table shapes")
+    if bins is None:
+        bins = bin_gaussians_cuda(points, box, grid)
+    elif n != grid.num_voxels:
+        raise ValueError(f"{name}: points are not the voxel grid")
+    _check_bins(name, bins, grid, p)
     acc = torch.empty(n, ca, dtype=torch.float32, device=points.device)
     labels = torch.empty(n, dtype=torch.int32, device=points.device)
-    pc = (ctypes.c_float * 3)(*grid.pc_min)
+    common = (points.data_ptr(), gdata.data_ptr(), box.data_ptr(),
+              sem_aug.data_ptr(), ca - 2, grid.H, grid.W, grid.D,
+              bins.tile_start.data_ptr(), bins.tile_items.data_ptr(),
+              bins.entries.data_ptr(), acc.data_ptr())
     if variant == "additive":
         code = _lib.lib().gf_splat_forward_additive(
-            points.data_ptr(), n, gdata.data_ptr(), box.data_ptr(),
-            sem_aug.data_ptr(), p, ca - 2, pc, float(grid.grid_size),
-            grid.H, grid.W, grid.D, acc.data_ptr(), labels.data_ptr(),
-            _lib.stream_ptr(points))
+            *common, labels.data_ptr(), _lib.stream_ptr(points))
         _lib.check(code, name)
         _lib.LAUNCHES["splat_additive"] += 1
         return acc, None, labels
     one_minus = torch.empty(n, dtype=torch.float32, device=points.device)
     code = _lib.lib().gf_splat_forward(
-        points.data_ptr(), n, gdata.data_ptr(), box.data_ptr(),
-        sem_aug.data_ptr(), p, ca - 2, pc, float(grid.grid_size),
-        grid.H, grid.W, grid.D, acc.data_ptr(), one_minus.data_ptr(),
-        labels.data_ptr(), int(label_mode == "threshold"), float(thresh),
-        int(empty_label), _lib.stream_ptr(points))
+        *common, one_minus.data_ptr(), labels.data_ptr(),
+        int(label_mode == "threshold"), float(thresh), int(empty_label),
+        _lib.stream_ptr(points))
     _lib.check(code, name)
     _lib.LAUNCHES["splat"] += 1
     return acc, one_minus, labels
 
 
 def splat_accumulate(points, gdata, box, sem_aug, grid,
-                     variant: str = "prob", **labels):
+                     variant: str = "prob", bins: SplatBins = None,
+                     **labels):
     """Splat accumulators and labels: the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors. ``labels``: the prob label mode's
-    keywords (``label_mode``, ``thresh``, ``empty_label``)."""
+    the CUDA kernel for CUDA tensors (on ``bins`` where given).
+    ``labels``: the prob label mode's keywords (``label_mode``,
+    ``thresh``, ``empty_label``)."""
     if points.device.type == "cpu":
         return splat_accumulate_plain(points, gdata, box, sem_aug, grid,
                                       variant, **labels)
     return splat_accumulate_cuda(points, gdata, box, sem_aug, grid, variant,
-                                 **labels)
+                                 bins=bins, **labels)
 
 
 NORM_3D = (2.0 * math.pi) ** -1.5
@@ -281,27 +473,20 @@ def splat_backward_plain(points, gdata, opa, sem, box, gl, scalars, grid,
     return _finish_backward(gdata, opa, sd, sdd, gw, gsem, prob)
 
 
-def _require_raster(name, points, grid):
-    """The kernel enumerates each Gaussian's AABB by raster index: the
-    points must be the voxel grid in raster order (x slowest, z
-    fastest), one per voxel."""
-    if points.shape != (grid.num_voxels, 3):
-        raise ValueError(f"{name}: points are not the {grid.H}x{grid.W}x"
-                         f"{grid.D} voxel grid")
-    idx = grid.voxelize(points)
-    lin = (idx[:, 0] * grid.W + idx[:, 1]) * grid.D + idx[:, 2]
-    if not torch.equal(lin, torch.arange(grid.num_voxels,
-                                         device=points.device)):
-        raise ValueError(f"{name}: points are not the voxel grid in raster "
-                         f"order")
+#: the backward's launches (``parts``): the tile launch and the fold
+TILE_LAUNCH, FOLD_LAUNCH = 1, 2
 
 
 def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid,
-                        variant: str = "prob"):
-    """Launch ``csrc/splat_bwd.cu``: one block per Gaussian over the
-    voxels of its AABB (the additive variant walks boxes of more than 8192
-    voxels in segments, in a second launch). The points must be the raster
-    voxel grid. ``scalars`` is None for the additive variant."""
+                        variant: str = "prob", *, bins: SplatBins = None,
+                        parts: int = TILE_LAUNCH | FOLD_LAUNCH):
+    """Launch ``csrc/splat_bwd.cu``: per voxel tile, each binned
+    Gaussian's sums into its slot of a workspace (entries x (10 + C)
+    floats), then a fold per Gaussian in a fixed order; no atomics. The
+    points must be the raster voxel grid. ``scalars`` is None for the
+    additive variant. ``bins``: the forward's :class:`SplatBins`, built
+    here when not given. ``parts`` selects the launches (to time them
+    apart; with one left out the outputs are not written)."""
     _check_variant(variant)
     name = "splat_backward"
     p, c = sem.shape
@@ -322,40 +507,41 @@ def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid,
             or gl.shape != (n, c)
             or (prob and scalars.shape != (n, 3))):
         raise ValueError(f"{name}: bad table shapes")
-    _require_raster(name, points, grid)
+    if bins is None:
+        bins = bin_gaussians_cuda(points, box, grid)
+    elif points.shape != (grid.num_voxels, 3):
+        raise ValueError(f"{name}: points are not the voxel grid")
+    _check_bins(name, bins, grid, p)
     f32 = dict(dtype=torch.float32, device=points.device)
     gmu = torch.empty(p, 3, **f32)
     gopa = torch.empty(p, **f32)
     gsem = torch.empty(p, c, **f32)
     gcov = torch.empty(p, 6, **f32)
-    if not prob:
-        # big[0] counts, big[1:] lists the boxes the kernel walks in segments
-        big = torch.zeros(p + 1, dtype=torch.int32, device=points.device)
-        code = _lib.lib().gf_splat_backward_additive(
-            points.data_ptr(), gdata.data_ptr(), opa.data_ptr(),
-            sem.data_ptr(), box.data_ptr(), gl.data_ptr(), p, c, grid.H,
-            grid.W, grid.D, gmu.data_ptr(), gopa.data_ptr(),
-            gsem.data_ptr(), gcov.data_ptr(), big.data_ptr(),
+    work = torch.empty(bins.num_entries, -(-(10 + c) // 4) * 4, **f32)
+    head = (points.data_ptr(), gdata.data_ptr(), opa.data_ptr(),
+            sem.data_ptr(), box.data_ptr(), gl.data_ptr())
+    tail = (p, c, grid.H, grid.W, grid.D, bins.tile_start.data_ptr(),
+            bins.tile_items.data_ptr(), bins.entries.data_ptr(),
+            bins.slot.data_ptr(),
+            bins.gauss_start.data_ptr(), work.data_ptr(), gmu.data_ptr(),
+            gopa.data_ptr(), gsem.data_ptr(), gcov.data_ptr(), int(parts),
             _lib.stream_ptr(points))
-        _lib.check(code, name)
-        _lib.LAUNCHES["splat_bwd_additive"] += 1
-        return gmu, gopa, gsem, gcov
-    code = _lib.lib().gf_splat_backward(
-        points.data_ptr(), gdata.data_ptr(), opa.data_ptr(), sem.data_ptr(),
-        box.data_ptr(), gl.data_ptr(), scalars.data_ptr(), p, c, grid.H,
-        grid.W, grid.D, gmu.data_ptr(), gopa.data_ptr(), gsem.data_ptr(),
-        gcov.data_ptr(), _lib.stream_ptr(points))
+    if prob:
+        code = _lib.lib().gf_splat_backward(*head, scalars.data_ptr(), *tail)
+    else:
+        code = _lib.lib().gf_splat_backward_additive(*head, *tail)
     _lib.check(code, name)
-    _lib.LAUNCHES["splat_bwd"] += 1
+    _lib.LAUNCHES["splat_bwd" if prob else "splat_bwd_additive"] += 1
     return gmu, gopa, gsem, gcov
 
 
 def splat_backward(points, gdata, opa, sem, box, gl, scalars, grid,
-                   variant: str = "prob"):
+                   variant: str = "prob", bins: SplatBins = None):
     """Per-Gaussian splat gradients: the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors."""
+    the CUDA kernel for CUDA tensors (on the forward's ``bins`` where
+    given)."""
     if points.device.type == "cpu":
         return splat_backward_plain(points, gdata, opa, sem, box, gl,
                                     scalars, grid, variant)
     return splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars,
-                               grid, variant)
+                               grid, variant, bins=bins)

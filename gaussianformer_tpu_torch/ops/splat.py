@@ -12,9 +12,11 @@ prob (GaussianFormer-2, :func:`splat_prob`):
 additive (the v1 models, :func:`splat_additive`):
     logits  = sum_g sem_g opa_g e_g
 The per-point loop is kernel K4 and its backward kernel K7
-(kernels/splat.py); this module packs the Gaussian tables, post-processes
-the accumulators and prepares the backward's per-voxel cotangents, as the
-JAX package's ``_splat_bwd_pallas_batched`` does.
+(kernels/splat.py); this module packs the Gaussian tables, bins them by
+voxel tile once per splat on the card (the forward's bins serve the
+backward), post-processes the accumulators and prepares the backward's
+per-voxel cotangents, as the JAX package's ``_splat_bwd_pallas_batched``
+does.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from typing import Tuple
 
 import torch
 
-from ..kernels.splat import (NORM_3D, postprocess_prob, splat_accumulate,
-                             splat_backward)
+from ..kernels.splat import (NORM_3D, bin_gaussians_cuda, postprocess_prob,
+                             splat_accumulate, splat_backward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,10 +93,17 @@ def pack_gaussians(means, opacities, semantics, scales, cov_inv6,
     return gdata, box.contiguous(), sem_aug.float().contiguous()
 
 
+def _bins(points, box, grid):
+    """The splat's tile bins for K4 and K7 on the card; None on the CPU,
+    where the plain versions take no bins."""
+    return bin_gaussians_cuda(points, box, grid) if points.is_cuda else None
+
+
 class SplatProbFunction(torch.autograd.Function):
     """One batch element's prob splat: K4 forward, which saves the logits,
-    the probability sums and ``one_minus`` (as ``f_fwd`` does); K7
-    backward on the per-voxel cotangents prepared here. ``labels`` is the
+    the probability sums and ``one_minus`` (as ``f_fwd`` does) and, on the
+    card, its tile bins; K7 backward on the per-voxel cotangents prepared
+    here. ``labels`` is the
     keyword dict of K4's label epilogue (``label_mode``, ``thresh``,
     ``empty_label``). Returns (logits [N, C], bin_logits [N], density [N],
     labels [N] int32)."""
@@ -105,15 +114,16 @@ class SplatProbFunction(torch.autograd.Function):
         gdata, box, sem_aug = pack_gaussians(means, opacities, semantics,
                                              scales, cov_inv6, grid,
                                              per_axis=per_axis)
-        acc, one_minus, labels = splat_accumulate(points, gdata, box,
-                                                  sem_aug, grid, **labels)
-        logits, bins, density = postprocess_prob(acc, one_minus)
+        ctx.bins = _bins(points, box, grid)
+        acc, one_minus, labels = splat_accumulate(
+            points, gdata, box, sem_aug, grid, bins=ctx.bins, **labels)
+        logits, bin_logits, density = postprocess_prob(acc, one_minus)
         c = semantics.shape[-1]
         ctx.grid = grid
         ctx.save_for_backward(points, gdata, opacities, semantics, box,
                               logits, acc[:, c], one_minus)
         ctx.mark_non_differentiable(labels)
-        return logits, bins, density, labels
+        return logits, bin_logits, density, labels
 
     @staticmethod
     def backward(ctx, g_logits, g_bin, g_density, _g_labels):
@@ -128,14 +138,16 @@ class SplatProbFunction(torch.autograd.Function):
                                g_density], -1).contiguous()
         gmu, gopa, gsem, gcov = splat_backward(
             points, gdata, opa.float().contiguous(),
-            sem.float().contiguous(), box, gl, scalars, ctx.grid)
+            sem.float().contiguous(), box, gl, scalars, ctx.grid,
+            bins=ctx.bins)
         return gmu, gopa, gsem, gcov, None, None, None, None, None
 
 
 class SplatAdditiveFunction(torch.autograd.Function):
     """One batch element's additive splat: K4 forward, which saves only
     its inputs (the JAX package's ``f_fwd`` saves no residuals for this
-    variant); K7 backward on the logits cotangent as it comes. Returns
+    variant) and, on the card, its tile bins; K7 backward on the logits
+    cotangent as it comes. Returns
     (logits [N, C], labels [N] int32)."""
 
     @staticmethod
@@ -144,8 +156,9 @@ class SplatAdditiveFunction(torch.autograd.Function):
         gdata, box, sem_aug = pack_gaussians(
             means, opacities, semantics, scales, cov_inv6, grid, "additive",
             per_axis)
+        ctx.bins = _bins(points, box, grid)
         acc, _, labels = splat_accumulate(points, gdata, box, sem_aug, grid,
-                                          "additive")
+                                          "additive", bins=ctx.bins)
         ctx.grid = grid
         ctx.save_for_backward(points, gdata, opacities, semantics, box)
         ctx.mark_non_differentiable(labels)
@@ -157,7 +170,7 @@ class SplatAdditiveFunction(torch.autograd.Function):
         gmu, gopa, gsem, gcov = splat_backward(
             points, gdata, opa.float().contiguous(),
             sem.float().contiguous(), box, g_logits.float().contiguous(),
-            None, ctx.grid, "additive")
+            None, ctx.grid, "additive", bins=ctx.bins)
         return gmu, gopa, gsem, gcov, None, None, None, None
 
 

@@ -7,21 +7,25 @@ Prob-256's 19,200 anchors, its ties, both cluster sizes and the
 points-per-thread boundaries, fp32 deformable
 features, a splat with sparse and dense coverage, with per-axis boxes and
 with the threshold label mode, the additive splat with the v1 head's
-whole-grid Gaussian; and
+whole-grid Gaussian, the splat's tile bins against their plain version,
+on a grid where no tile is a whole brick; and
 the backward kernels K5-K7 against their plain backward versions on random
-cotangents. Marked ``cuda``; they skip on a host
+cotangents. The splat kernels K4 and K7 (and their bins) give the same
+bits on every call. Marked ``cuda``; they skip on a host
 without a CUDA device. On the card (``--noconftest``: tests/conftest.py
 imports JAX):
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda``.
 
 Tolerances: a bf16 output may differ by a rounding flip of its fp32 sum,
 so 2^-7 max|ref| (two bf16 ulps at the top of the range); fp32 gradients
-summed over thousands of terms in another order (atomics, in an order that
-changes from run to run) get 1e-3 max|ref|."""
+summed over thousands of terms in another order than the plain version's
+(with atomics for K5 and K6) get 1e-3 max|ref|."""
+import ctypes
+
 import pytest
 import torch
 
-from gaussianformer_tpu_torch.kernels import dcn, deformable, fps, splat
+from gaussianformer_tpu_torch.kernels import _lib, dcn, deformable, fps, splat
 from gaussianformer_tpu_torch.ops.covariance import build_covariance_inverse6
 from gaussianformer_tpu_torch.ops.splat import SplatGridSpec, pack_gaussians
 
@@ -374,9 +378,8 @@ def test_splat_backward_kernel_matches_plain(gen, per_axis):
 
 def _additive_case(gen):
     """The v1 head's shapes in small: many small boxes, one Gaussian whose
-    box is the whole grid (more than the kernel's 8192-voxel limit for a
-    single block, so it is walked in segments) and softplus-like positive
-    semantics with a zero empty channel."""
+    box is the whole grid (an entry in every tile, each one COVERS) and
+    softplus-like positive semantics with a zero empty channel."""
     grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
     p, c = sem.shape
     scales = scales * 0.3
@@ -426,8 +429,8 @@ def test_splat_additive_kernel_matches_plain(gen, empty_semantics):
 
 def test_splat_additive_backward_kernel_matches_plain(gen):
     """K7 additive; the small boxes' rows held to their own largest value,
-    without the whole-grid Gaussian's row (summed in segments with
-    atomics), which is held on its own."""
+    without the whole-grid Gaussian's row (summed over every tile), which
+    dwarfs them and is held on its own."""
     grid, pts, means, opa, sem, scales, cov6 = _additive_case(gen)
     gdata, box, _ = pack_gaussians(means, opa, sem, scales, cov6, grid,
                                    "additive")
@@ -441,3 +444,163 @@ def test_splat_additive_backward_kernel_matches_plain(gen):
     with pytest.raises(ValueError):
         splat.splat_backward_cuda(*args[:6], randn(gen, pts.shape[0], 3),
                                   grid, "additive")
+
+
+def _bins_case(gen, case):
+    """(grid, points, box) of a splat case for the bins: ``iso`` and
+    ``per_axis`` boxes of the mixed-radius case, ``additive`` with the
+    whole-grid Gaussian, ``wide`` with scales three times larger (boxes
+    holding partial bricks whole: COVERS entries at the grid's edges)."""
+    if case == "additive":
+        grid, pts, means, opa, sem, scales, cov6 = _additive_case(gen)
+    else:
+        grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
+    if case == "wide":
+        scales = scales * 3.0
+    _, box, _ = pack_gaussians(means, opa, sem, scales, cov6, grid,
+                               per_axis=case == "per_axis")
+    return grid, pts, box
+
+
+@pytest.mark.parametrize("case", ["iso", "per_axis", "additive", "wide"])
+def test_splat_bins_match_plain(gen, case):
+    """The binning launches (count, offsets, expand, columns, tiles,
+    place) give the plain version's bins exactly, twice over; the tile
+    edges and the Gaussian block of the CUDA source are the Python
+    constants."""
+    dims = (ctypes.c_int * 4)()
+    _lib.lib().gf_splat_tile_dims(dims)
+    assert tuple(dims) == splat.TILE + (splat.GBLOCK,)
+    grid, pts, box = _bins_case(gen, case)
+    ref = splat.bin_gaussians_plain(box.cpu(), grid)
+    for _ in range(2):
+        got = splat.bin_gaussians_cuda(pts, box, grid)
+        for name in ("tile_start", "tile_items", "entries", "slot",
+                     "gauss_start"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), \
+                name
+    assert got.num_entries > box.shape[0]
+    if case in ("additive", "wide"):
+        assert got.covers().any()
+
+
+def test_splat_kernel_refuses_non_raster_points(gen):
+    """K4, like K7, takes only the raster voxel grid: points in another
+    order, or fewer of them, raise (no fallback)."""
+    grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid)
+    for bad in (pts.flip(0).contiguous(), pts[:-1].contiguous()):
+        with pytest.raises(ValueError):
+            splat.splat_accumulate_cuda(bad, *tables, grid)
+        with pytest.raises(ValueError):
+            splat.splat_accumulate_cuda(bad, *tables, grid, "additive")
+
+
+def _equal(a, b):
+    return all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("variant", ["prob", "additive"])
+def test_splat_kernels_repeat_bit_equal(gen, variant):
+    """K4 and K7 give the same bits on two calls: each voxel sums its
+    Gaussians in index order, each Gaussian its tiles in raster order, with
+    no atomics; for the additive variant this includes the whole-grid
+    Gaussian's gradient row."""
+    case = _additive_case if variant == "additive" else _splat_case
+    grid, pts, means, opa, sem, scales, cov6 = case(gen)
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid, variant)
+    fwd = [splat.splat_accumulate_cuda(pts, *tables, grid, variant)
+           for _ in range(2)]
+    assert _equal(*fwd)
+    n, c = pts.shape[0], sem.shape[1]
+    gl = randn(gen, n, c)
+    scalars = randn(gen, n, 3) if variant == "prob" else None
+    args = (pts, tables[0], opa, sem, tables[1], gl, scalars, grid, variant)
+    bwd = [splat.splat_backward_cuda(*args) for _ in range(2)]
+    assert _equal(*bwd)
+    assert all(t[-1].abs().max() > 0 for t in bwd[0])
+
+
+@pytest.mark.parametrize("variant", ["prob", "additive"])
+def test_splat_kernels_on_given_bins_equal_their_own(gen, variant):
+    """K4 and K7 on bins built beforehand (as the autograd function hands
+    the forward's bins to the backward) give the bits of K4 and K7 building
+    their own."""
+    case = _additive_case if variant == "additive" else _splat_case
+    grid, pts, means, opa, sem, scales, cov6 = case(gen)
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid, variant)
+    bins = splat.bin_gaussians_cuda(pts, tables[1], grid)
+    assert _equal(splat.splat_accumulate_cuda(pts, *tables, grid, variant,
+                                              bins=bins),
+                  splat.splat_accumulate_cuda(pts, *tables, grid, variant))
+    gl = randn(gen, pts.shape[0], sem.shape[1])
+    scalars = randn(gen, pts.shape[0], 3) if variant == "prob" else None
+    args = (pts, tables[0], opa, sem, tables[1], gl, scalars, grid, variant)
+    assert _equal(splat.splat_backward_cuda(*args, bins=bins),
+                  splat.splat_backward_cuda(*args))
+    other = splat.bin_gaussians_cuda(pts, tables[1][:-1].contiguous(), grid)
+    with pytest.raises(ValueError):
+        splat.splat_backward_cuda(*args, bins=other)
+
+
+@pytest.mark.parametrize("variant", ["prob", "additive"])
+def test_splat_kernels_no_whole_brick(gen, variant):
+    """The 40 x 30 x 8 grid, where no tile is a whole brick (8 voxels of a
+    tile's 16 along z, 6 of 8 along y in the last row), with boxes three
+    times wider, so that many entries COVER a partial brick: K4 and K7
+    against their plain versions with the tolerances above."""
+    grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
+    assert grid.D < splat.TILE[2]
+    scales = scales * 3.0
+    cov6 = build_covariance_inverse6(scales, randn(gen, scales.shape[0], 4))
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid, variant)
+    bins = splat.bin_gaussians_cuda(pts, tables[1], grid)
+    assert bins.covers().float().mean() > 0.2
+    got = splat.splat_accumulate_cuda(pts, *tables, grid, variant)
+    ref = splat.splat_accumulate_plain(pts, *tables, grid, variant)
+    assert (got[0] - ref[0]).abs().max() <= 1e-4 * ref[0].abs().max()
+    if variant == "prob":
+        assert (got[1] - ref[1]).abs().max() <= 1e-4
+    n, c = pts.shape[0], sem.shape[1]
+    gl = randn(gen, n, c)
+    scalars = randn(gen, n, 3) if variant == "prob" else None
+    args = (pts, tables[0], opa, sem, tables[1], gl, scalars, grid, variant)
+    got = splat.splat_backward_cuda(*args)
+    ref = splat.splat_backward_plain(*args)
+    for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got, ref):
+        _close(gt, rf, SUM_TOL, name)
+
+
+@pytest.mark.parametrize("variant", ["prob", "additive"])
+def test_splat_kernels_on_split_tiles(gen, variant):
+    """A crowded tile (300 of the 700 Gaussians, small, near one corner of
+    the grid) has more than twice the mean list length, so the bins give it
+    as two work items (K4 takes its x planes in halves, K7 its entries):
+    K4 and K7 against their plain versions, and twice the same bits."""
+    case = _additive_case if variant == "additive" else _splat_case
+    grid, pts, means, opa, sem, scales, cov6 = case(gen)
+    lo = torch.tensor(grid.pc_min, device="cuda")
+    means[:300] = lo + torch.rand(300, 3, generator=gen, device="cuda") * 2.0
+    scales[:300] = scales[:300].clamp_max(0.4)
+    cov6 = build_covariance_inverse6(scales, randn(gen, scales.shape[0], 4))
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid, variant)
+    bins = splat.bin_gaussians_cuda(pts, tables[1], grid)
+    items = bins.tile_items.tolist()
+    assert items[:2] == [1, 2]   # tile 0's halves come first
+    got = splat.splat_accumulate_cuda(pts, *tables, grid, variant)
+    ref = splat.splat_accumulate_plain(pts, *tables, grid, variant)
+    assert (got[0] - ref[0]).abs().max() <= 1e-4 * ref[0].abs().max()
+    if variant == "prob":
+        assert (got[1] - ref[1]).abs().max() <= 1e-4
+        assert (got[2] == ref[2]).float().mean() >= 0.999
+    assert _equal(got, splat.splat_accumulate_cuda(pts, *tables, grid,
+                                                   variant))
+    gl = randn(gen, pts.shape[0], sem.shape[1])
+    scalars = randn(gen, pts.shape[0], 3) if variant == "prob" else None
+    args = (pts, tables[0], opa, sem, tables[1], gl, scalars, grid, variant)
+    got = splat.splat_backward_cuda(*args)
+    ref = splat.splat_backward_plain(*args)
+    for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got, ref):
+        _close(gt, rf, SUM_TOL, name)
+    assert _equal(got, splat.splat_backward_cuda(*args))
