@@ -34,15 +34,18 @@ Phases (each raises on failure, so the script exits nonzero):
 5. train    the full-width train step (forward with dropout, losses,
             backward, clipping, AdamW) on the same model: one warm-up step
             capturing the backward kernels' inputs, one counted step (the
-            forward kernels as in phase 2 plus 52 DCN, 4 deformable and 1
-            splat backward launches), three timed steps and one profiled
+            forward kernels as in phase 2 plus 52 DCN, 4 deformable
+            binnings, 4 deformable and 1 splat backward launches), three timed steps and one profiled
             step for the device's idle share; finite loss terms and
             gradient norm, trained parameters moved, frozen ones unchanged
             to the bit;
 6. backward each backward kernel against its plain backward version on the
             captured inputs and cotangents (K7 on the forward's bins, as
             the path runs it: equal to K7 binning on its own, the same bits
-            on a second call, each of its two launches timed); for K5 also
+            on a second call, each of its two launches timed; K6 timed with
+            its pixel binning, the same bits on a second call, its bins
+            against the plain bins in a row of their own, each of its two
+            launches timed); for K5 also
             the share of
             corners outside its shared-memory g_x window, each of its two
             launches' time (CUDA events), and the stage-3 inputs once
@@ -59,7 +62,8 @@ Phases (each raises on failure, so the script exits nonzero):
             Gaussian reaches a voxel; with the empty Gaussian, which
             decides the labels at init, once more with its semantics
             zeroed); each config's train step as in phase 5 (plus
-            26 DCN, 4 deformable and 1 additive splat backward launches,
+            26 DCN, 4 deformable binnings, 4 deformable and 1 additive splat
+            backward launches,
             or 4 binnings, 4 splats and 4 backwards where gs144000
             supervises every refine layer; the lifter's bank and the head's
             empty_scalar among the trained leaves) and its backward kernels
@@ -100,27 +104,29 @@ FRAMES = 3
 STEPS = 3
 NO_LAUNCH = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
              "splat": 0, "splat_additive": 0, "dcn_bwd": 0,
-             "deformable_bwd": 0, "splat_bwd": 0, "splat_bwd_additive": 0}
+             "deformable_bin": 0, "deformable_bwd": 0, "splat_bwd": 0,
+             "splat_bwd_additive": 0}
 # the splat's tile binning runs once per forward splat; the backward takes
 # the forward's bins
 EXPECTED_LAUNCHES = {**NO_LAUNCH, "dcn": 52, "fps": 1, "deformable": 4,
                      "splat_bin": 1, "splat": 1}
 # a train step without checkpointing: the forward's kernels once, and each
-# backward kernel once per forward launch
+# backward kernel once per forward launch (K6 with its pixel binning)
 EXPECTED_TRAIN_LAUNCHES = {**EXPECTED_LAUNCHES, "dcn_bwd": 52,
-                           "deformable_bwd": 4, "splat_bwd": 1}
+                           "deformable_bin": 4, "deformable_bwd": 4,
+                           "splat_bwd": 1}
 # the v1 configs: one tower (26 DCN blocks), no FPS, the additive splat
 V1_LAUNCHES = {**NO_LAUNCH, "dcn": 26, "deformable": 4, "splat_bin": 1,
                "splat_additive": 1}
-V1_TRAIN_LAUNCHES = {**V1_LAUNCHES, "dcn_bwd": 26, "deformable_bwd": 4,
-                     "splat_bwd_additive": 1}
+V1_TRAIN_LAUNCHES = {**V1_LAUNCHES, "dcn_bwd": 26, "deformable_bin": 4,
+                     "deformable_bwd": 4, "splat_bwd_additive": 1}
 # gs144000 supervises all four refine layers: four splats and backwards
 V1_ALL_TRAIN_LAUNCHES = {**V1_TRAIN_LAUNCHES, "splat_bin": 4,
                          "splat_additive": 4, "splat_bwd_additive": 4}
 # tolerances of the backward kernels against their plain versions: a bf16
 # output may differ by a rounding flip of its fp32 sum (two bf16 ulps at the
 # top of the range); fp32 gradients summed over thousands of terms in
-# another order (with atomics for K5 and K6), to 1e-3 of the largest |ref|
+# another order (with atomics for K5), to 1e-3 of the largest |ref|
 BF16_TOL = 2.0 ** -7
 SUM_TOL = 1e-3
 # a box of more voxels than this is the v1 head's empty Gaussian, the last
@@ -1224,6 +1230,9 @@ def check_backward(key, call, launches, mods, tag=""):
         # K7 on the forward's bins (as the path runs it) and on its own;
         # twice, as it has no atomics: the same bits each time
         row.update(splat_backward_extras(fn, args, kw, got, mods))
+    elif name == "deformable_bwd":
+        row.update(deformable_backward_extras(fn, args, got, launches, mods,
+                                              suffix))
     ref, plain_ms = timed(lambda: plain(*args))
     vol = (splat_pairs(points, box[-1:], grid)
            if name == "splat_bwd" and additive else 0)
@@ -1309,6 +1318,64 @@ def splat_backward_extras(fn, args, kw, got, mods) -> dict:
                            "calls")
     return dict(launch_ms=launch, entries=bins.num_entries,
                 workspace_mb=work_mb, forward_bins=kw.get("bins") is not None)
+
+
+def deformable_backward_extras(fn, args, got, launches, mods,
+                               suffix) -> dict:
+    """K6's numbers beside its row: a second call must give the bits of
+    the first (no atomics); its pixel bins (``csrc/deformable_bin.cu``)
+    against the plain bins, every element equal, with their entries,
+    longest list, workspace and time (a row of their own); each of its two
+    launches timed alone on those bins."""
+    deformable = mods.deformable
+    feats, pts = args[0], args[1]
+
+    def flat(out):
+        return list(out[0]) + [out[1], out[2]]
+    repeat = all(torch_equal(a, b) for a, b in zip(flat(got),
+                                                    flat(fn(*args))))
+    shapes = [tuple(f.shape[2:4]) for f in feats]
+    bins = deformable.bin_samples_cuda(pts, shapes)
+    ref, plain_ms = timed(lambda: deformable.bin_samples_plain(pts, shapes))
+    e = bins.num_entries
+    differ = abs(e - ref.num_entries) + int(
+        (bins.pixel_start != ref.pixel_start).sum().item())
+    if e == ref.num_entries:
+        differ += int((bins.entries[:e] != ref.entries).sum().item())
+    del ref
+    stats = bins.stats()
+    ms = cuda_ms(lambda: deformable.bin_samples_cuda(pts, shapes), 10)
+    launch = {part: cuda_ms(lambda: fn(*args, bins=bins, parts=bit), 10)
+              for part, bit in (("points", deformable.POINTS_LAUNCH),
+                                ("features", deformable.FEATURES_LAUNCH))}
+    # each input read once (the points), each output written once (the
+    # entries and the pixels' starts)
+    nbytes = pts.numel() * 4 + e * 4 + (stats["pixels"] + 1) * 4
+    bins_row = dict(
+        name="deformable_bins" + suffix, route="cuda",
+        source="gaussianformer_tpu_torch/csrc/deformable_bin.cu",
+        replaces="gaussianformer_tpu/ops/pallas/deformable_kernel.py:417",
+        launches=launches["deformable_bin"], shape=list(pts.shape), **stats,
+        workspace_bytes=bins.workspace_bytes, max_abs_err=float(differ),
+        tol=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+        library_ms=None, report=True)
+    log(f"# {bins_row['name']}: {e} entries over {stats['pixels_used']} of "
+        f"{stats['pixels']} pixels, longest list {stats['longest_list']}, "
+        f"mean {stats['mean_list']:.1f}; workspace "
+        f"{bins.workspace_bytes / 1e6:.1f} MB; {differ} elements differ "
+        f"from the plain bins; binning {ms:.4f} ms, plain {plain_ms:.3f} "
+        f"ms, bound {bins_row['bound_ms']:.4f} ms (bytes)")
+    log(f"# deformable_aggregation_backward{suffix}: a second call "
+        f"bit-equal {repeat}; points launch {launch['points']:.4f} ms, "
+        f"features launch {launch['features']:.4f} ms")
+    if differ:
+        raise RuntimeError(f"{bins_row['name']}: the bins differ from the "
+                           f"plain version's")
+    if not repeat:
+        raise RuntimeError("K6 is not deterministic across calls")
+    return dict(repeat_bit_equal=repeat, launch_ms=launch,
+                extra_rows=[bins_row])
 
 
 def dcn_launches(dcn, args, iters: int = 10) -> dict:

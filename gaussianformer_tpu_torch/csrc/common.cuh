@@ -34,6 +34,12 @@ __device__ __forceinline__ void load_vec<4>(const float* p, float* out) {
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
 
+template <>
+__device__ __forceinline__ void load_vec<8>(const float* p, float* out) {
+  load_vec<4>(p, out);
+  load_vec<4>(p + 4, out + 4);
+}
+
 template <int VEC>
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
 #pragma unroll
@@ -58,6 +64,32 @@ __device__ __forceinline__ void load_vec<8>(const __nv_bfloat16* p,
     float2 f = __bfloat1622float2(h[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
+  }
+}
+
+// Store v[0..VEC) at p (aligned to VEC elements), rounded to bf16 for a
+// bf16 array.
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) p[i] = v[i];
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  if constexpr (VEC % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i)
+      reinterpret_cast<__nv_bfloat162*>(p)[i] =
+          __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  } else {
+    p[0] = __float2bfloat16_rn(v[0]);
   }
 }
 

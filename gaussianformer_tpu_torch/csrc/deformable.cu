@@ -15,100 +15,120 @@
 //
 // Bound on the H100: bytes. Each in-image (key point, camera) pair reads 4
 // corners x 4 levels of C channels; at flagship size the feature maps are
-// about 60 MB of bf16 and the inputs another 10 MB, and the gather re-reads
-// corners from L2. Flops are negligible.
+// about 44 MB of bf16 (mostly L2 hits: the card's L2 holds 50 MB) and the
+// inputs another 10 MB. Flops are negligible; the latency of dependent
+// loads is what a design must hide.
 //
 // Design: a direct gather, like the reference's
-// deformable_aggregation_cuda.cu. One warp owns one anchor; each lane owns
-// VEC contiguous channels (one vector load per corner, a warp reads a whole
-// contiguous channel row). The warp walks key points, cameras and levels,
-// skipping (key point, camera) pairs outside the image with a warp-uniform
-// branch, and accumulates in fp32 registers, so the key-point sum is fused
-// and no atomics or intermediate tensors are needed. Unlike the TPU kernel
-// it needs no x-sort, no sampling windows and no spill clean-up.
-#include "common.cuh"
+// deformable_aggregation_cuda.cu, with the loads of a pair issued together.
+// One warp owns one anchor; each lane owns VEC contiguous channels (one
+// vector load per corner, a warp reads a whole channel row). The lanes
+// load the anchor's K x cams (u, v) in one coalesced load (32 pairs at a
+// time) and one ballot gives the in-image pairs; the warp visits only
+// those, taking (u, v) by shuffle. The level count is a template
+// parameter, and a pair's 4 L corner addresses are computed branch-free
+// (clamped into the level, zero weight outside), so all 16 loads of a pair
+// (with its L weights) are in flight before the first FMA. Sums are fp32
+// registers in the pairs' order, so the key-point sum is fused with no
+// atomics and no intermediate tensors. Unlike the TPU kernel it needs no
+// x-sort, no sampling windows and no spill clean-up.
+#include "deformable.cuh"
 
 namespace {
 
-constexpr int MAX_LEVELS = 4;
+using gf::deform::Chunk;
+using gf::deform::Levels;
+
 constexpr int WARPS = 8;
 
-struct Levels {
-  const void* ptr[MAX_LEVELS];
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-  int n;
-};
-
-template <typename T, int VEC>
+template <typename T, int VEC, int L>
 __global__ void __launch_bounds__(WARPS * 32)
 deformable_kernel(Levels lv, const float* __restrict__ pts,
                   const float* __restrict__ wts, float* __restrict__ out,
                   int B, int P, int K, int cams, int C, int G) {
+  constexpr int LB = gf::deform::levels_in_flight<T, VEC, L>();
   const int warp = blockIdx.x * WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
-  if (warp >= B * P) return;
-  const int b = warp / P;
-  const int p = warp % P;
+  if (warp >= B * P) return;   // the whole warp
   const int c0 = lane * VEC;
   const int g = c0 / (C / G);
-  const int L = lv.n;
-  const long Q = (long)P * K;
+  const int KC = K * cams;
+  const long pair0 = (long)warp * KC;   // the anchor's first pair
+  const int b = warp / P;
 
   float acc[VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
 
-  for (int k = 0; k < K; ++k) {
-    const long q = (long)b * Q + (long)p * K + k;
-    for (int cam = 0; cam < cams; ++cam) {
-      const float u = pts[(q * cams + cam) * 2];
-      const float v = pts[(q * cams + cam) * 2 + 1];
-      if (!(u > 0.f && u < 1.f && v > 0.f && v < 1.f)) continue;
-      const float* wrow = wts + ((q * cams + cam) * L) * G;
-      for (int l = 0; l < L; ++l) {
-        const int hl = lv.h[l];
-        const int wl = lv.w[l];
-        const float wgt = wrow[l * G + g];
-        const float w_im = __fsub_rn(__fmul_rn(u, (float)wl), 0.5f);
-        const float h_im = __fsub_rn(__fmul_rn(v, (float)hl), 0.5f);
-        const float h0f = floorf(h_im);
-        const float w0f = floorf(w_im);
-        const float lh = h_im - h0f;
-        const float lw = w_im - w0f;
-        const int h0 = (int)h0f;
-        const int w0 = (int)w0f;
-        const float cw[4] = {(1.f - lh) * (1.f - lw), (1.f - lh) * lw,
-                             lh * (1.f - lw), lh * lw};
-        const T* base = static_cast<const T*>(lv.ptr[l]) +
-                        (long)(b * cams + cam) * hl * wl * C;
+  for (int j0 = 0; j0 < KC; j0 += 32) {
+    float u = 0.f, v = 0.f;
+    if (j0 + lane < KC) {
+      const float2 uv =
+          reinterpret_cast<const float2*>(pts)[pair0 + j0 + lane];
+      u = uv.x;
+      v = uv.y;
+    }
+    unsigned todo = __ballot_sync(0xffffffffu, gf::deform::inside(u, v));
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float pu = __shfl_sync(0xffffffffu, u, src);
+      const float pv = __shfl_sync(0xffffffffu, v, src);
+      const long pair = pair0 + j0 + src;
+      const int cam = (j0 + src) % cams;
+      const long plane = (long)b * cams + cam;
 #pragma unroll
-        for (int cn = 0; cn < 4; ++cn) {
-          const int hy = h0 + (cn >> 1);
-          const int wx = w0 + (cn & 1);
-          if (hy < 0 || hy > hl - 1 || wx < 0 || wx > wl - 1) continue;
-          const float cwt = cw[cn] * wgt;
-          float f[VEC];
-          gf::load_vec<VEC>(base + ((long)hy * wl + wx) * C + c0, f);
+      for (int l0 = 0; l0 < L; l0 += LB) {
+        Chunk<T, VEC> f[LB][4];
+        float cwt[LB][4];
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[e] += f[e] * cwt;
+        for (int i = 0; i < LB; ++i) {
+          const int l = l0 + i;
+          const int hl = lv.h[l], wl = lv.w[l];
+          const float wgt = wts[(pair * L + l) * G + g];
+          const gf::deform::Corners cn = gf::deform::corners(pu, pv, hl, wl);
+          const T* base = static_cast<const T*>(lv.ptr[l]) +
+                          plane * hl * wl * C + c0;
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            f[i][n].load(base + (long)cn.pix[n] * C);
+            cwt[i][n] = cn.cw[n] * wgt;
+          }
         }
+#pragma unroll
+        for (int i = 0; i < LB; ++i)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[e] += f[i][n].get(e) * cwt[i][n];
       }
     }
   }
-  float* o = out + ((long)b * P + p) * C + c0;
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) o[e] = acc[e];
+  gf::store_vec<VEC>(out + (long)warp * C + c0, acc);
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, int L>
 int launch(const Levels& lv, const float* pts, const float* wts, float* out,
            int B, int P, int K, int cams, int C, int G, cudaStream_t st) {
   const int warps = B * P;
+  if (warps == 0) return 0;
   const int blocks = (warps + WARPS - 1) / WARPS;
-  deformable_kernel<T, VEC><<<blocks, WARPS * 32, 0, st>>>(
+  deformable_kernel<T, VEC, L><<<blocks, WARPS * 32, 0, st>>>(
       lv, pts, wts, out, B, P, K, cams, C, G);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int by_levels(const Levels& lv, const float* pts, const float* wts,
+              float* out, int B, int P, int K, int cams, int C, int G,
+              cudaStream_t st) {
+  switch (lv.n) {
+    case 1: return launch<T, VEC, 1>(lv, pts, wts, out, B, P, K, cams, C, G, st);
+    case 2: return launch<T, VEC, 2>(lv, pts, wts, out, B, P, K, cams, C, G, st);
+    case 3: return launch<T, VEC, 3>(lv, pts, wts, out, B, P, K, cams, C, G, st);
+    case 4: return launch<T, VEC, 4>(lv, pts, wts, out, B, P, K, cams, C, G, st);
+    default: return -1;
+  }
 }
 
 template <typename T>
@@ -116,10 +136,10 @@ int dispatch(const Levels& lv, const float* pts, const float* wts,
              float* out, int B, int P, int K, int cams, int C, int G,
              cudaStream_t st) {
   switch (C / 32) {
-    case 1: return launch<T, 1>(lv, pts, wts, out, B, P, K, cams, C, G, st);
-    case 2: return launch<T, 2>(lv, pts, wts, out, B, P, K, cams, C, G, st);
-    case 4: return launch<T, 4>(lv, pts, wts, out, B, P, K, cams, C, G, st);
-    case 8: return launch<T, 8>(lv, pts, wts, out, B, P, K, cams, C, G, st);
+    case 1: return by_levels<T, 1>(lv, pts, wts, out, B, P, K, cams, C, G, st);
+    case 2: return by_levels<T, 2>(lv, pts, wts, out, B, P, K, cams, C, G, st);
+    case 4: return by_levels<T, 4>(lv, pts, wts, out, B, P, K, cams, C, G, st);
+    case 8: return by_levels<T, 8>(lv, pts, wts, out, B, P, K, cams, C, G, st);
     default: return -1;
   }
 }
@@ -137,11 +157,14 @@ GF_EXPORT int gf_deformable_forward(const void* const* feats,
                                     const void* pts, const void* wts,
                                     void* out, int B, int P, int K, int cams,
                                     int C, int G, void* stream) {
+  using gf::deform::MAX_LEVELS;
   if (num_levels < 1 || num_levels > MAX_LEVELS) return -1;
+  if (C % 32 != 0 || C % G != 0 || (C / G) % (C / 32) != 0) return -1;
   Levels lv;
   lv.n = num_levels;
   for (int l = 0; l < MAX_LEVELS; ++l) {
     lv.ptr[l] = l < num_levels ? feats[l] : nullptr;
+    lv.grad[l] = nullptr;
     lv.h[l] = l < num_levels ? heights[l] : 0;
     lv.w[l] = l < num_levels ? widths[l] : 0;
   }

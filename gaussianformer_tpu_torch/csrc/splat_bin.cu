@@ -31,42 +31,26 @@
 //   6. place: each entry goes to its tile's start + the earlier blocks' and
 //      warps' entries of that tile + its rank among its warp's earlier
 //      entries of that tile (a tile's Gaussians stay in ascending index
-//      order); its Gaussian-major position is its slot.
+//      order; the ranking of bin_rank.cuh); its Gaussian-major position is
+//      its slot.
 // At most MAX_TILES tiles.
 //
 // Bound on the H100: bytes, and launch latency at these sizes (the boxes,
 // the points for the raster check, and a few int32 words per entry).
 #include <math.h>
 
+#include "bin_rank.cuh"
 #include "splat_bin.cuh"
 
 namespace {
 
 using namespace gf::splat;
+using gf::binrank::block_exclusive_sum;
 
 constexpr int GBLOCK = 256;        // Gaussians a block of count and expand
 constexpr int PLACE_WARPS = 8;
 constexpr int SCAN_THREADS = 1024;
 constexpr int MAX_TILES = 4096;
-
-// The exclusive prefix sum of v over the block's threads in order; every
-// thread of the block calls it.
-__device__ int block_exclusive_sum(int v) {
-  __shared__ int s_warp[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += u;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  int before = 0;
-  for (int w = 0; w < warp; ++w) before += s_warp[w];
-  __syncthreads();   // s_warp may be written again
-  return before + incl - v;
-}
 
 __device__ __forceinline__ int tiles_met(const int* __restrict__ b, int GH,
                                          int GW, int GD) {
@@ -286,14 +270,7 @@ bin_place_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
   // each warp's entries of each tile
   for (int s = lo; s < hi; s += 32) {
     const int e = s + lane;
-    const bool valid = e < hi;
-    const unsigned live = __ballot_sync(0xffffffffu, valid);
-    if (valid) {
-      const int k = keys[e];
-      const unsigned peers = __match_any_sync(live, k);
-      if (lane == __ffs(peers) - 1) wc[k] += __popc(peers);
-    }
-    __syncwarp();
+    gf::binrank::count_round(e < hi, e < hi ? keys[e] : 0, wc);
   }
   __syncthreads();
   // each warp's first place in each tile
@@ -308,20 +285,12 @@ bin_place_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
   __syncthreads();
   for (int s = lo; s < hi; s += 32) {
     const int e = s + lane;
-    const bool valid = e < hi;
-    const unsigned live = __ballot_sync(0xffffffffu, valid);
-    int k = 0;
-    unsigned peers = 0;
-    if (valid) {
-      k = keys[e];
-      peers = __match_any_sync(live, k);
-      const int pos = wc[k] + __popc(peers & ((1u << lane) - 1u));
+    const int pos = gf::binrank::place_round(e < hi, e < hi ? keys[e] : 0,
+                                             wc);
+    if (pos >= 0) {
       entries[pos] = vals[e];
       slot[pos] = e;
     }
-    __syncwarp();
-    if (valid && lane == __ffs(peers) - 1) wc[k] += __popc(peers);
-    __syncwarp();
   }
 }
 

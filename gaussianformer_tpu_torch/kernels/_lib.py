@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
             "splat": 0, "splat_additive": 0, "dcn_bwd": 0,
-            "deformable_bwd": 0, "splat_bwd": 0, "splat_bwd_additive": 0}
+            "deformable_bin": 0, "deformable_bwd": 0, "splat_bwd": 0,
+            "splat_bwd_additive": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -160,8 +161,16 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.gf_dcn_backward_parts.restype = I
     so.gf_deformable_backward.argtypes = [
         ctypes.POINTER(P), ctypes.POINTER(P), ctypes.POINTER(I),
-        ctypes.POINTER(I), I, I, P, P, P, P, P, I, I, I, I, I, I, P]
+        ctypes.POINTER(I), I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+        P]
     so.gf_deformable_backward.restype = I
+    so.gf_deformable_bin_sizes.argtypes = [
+        ctypes.POINTER(I), ctypes.POINTER(I), I, I, I, I,
+        ctypes.POINTER(ctypes.c_longlong)]
+    so.gf_deformable_bin_sizes.restype = I
+    so.gf_deformable_bin.argtypes = [ctypes.POINTER(I), ctypes.POINTER(I), I,
+                                     P, I, I, I, P, P, P, P]
+    so.gf_deformable_bin.restype = I
     so.gf_splat_backward.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
                                      P, P, P, P, P, P, P, P, P, P, I, P]
     so.gf_splat_backward.restype = I

@@ -4,22 +4,24 @@ reach: DCN offsets of several pixels (corners outside the image and, in
 the backward, outside the kernel's shared-memory g_x window) and the
 forward at the tower's own shapes, masked and exhausted FPS, FPS to
 Prob-256's 19,200 anchors, its ties, both cluster sizes and the
-points-per-thread boundaries, fp32 deformable
-features, a splat with sparse and dense coverage, with per-axis boxes and
-with the threshold label mode, the additive splat with the v1 head's
-whole-grid Gaussian, the splat's tile bins against their plain version,
-on a grid where no tile is a whole brick; and
-the backward kernels K5-K7 against their plain backward versions on random
-cotangents. The splat kernels K4 and K7 (and their bins) give the same
-bits on every call. Marked ``cuda``; they skip on a host
-without a CUDA device. On the card (``--noconftest``: tests/conftest.py
-imports JAX):
+points-per-thread boundaries, fp32 deformable features, K3 with one to
+four levels and anchors outside every camera, K6 at every channel width
+and level count with its pixel bins against the plain bins, a pixel list
+split over warps, a splat with sparse and dense coverage, with per-axis
+boxes and with the threshold label mode, the additive splat with the v1
+head's whole-grid Gaussian, the splat's tile bins against their plain
+version, on a grid where no tile is a whole brick; and the backward
+kernels K5-K7 against their plain backward versions on random cotangents.
+The splat kernels K4 and K7 (and their bins) and K6 give the same bits on
+every call, and K6's call makes no host sync. Marked ``cuda``; they skip
+on a host without a CUDA device. On the card (``--noconftest``:
+tests/conftest.py imports JAX):
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda``.
 
 Tolerances: a bf16 output may differ by a rounding flip of its fp32 sum,
 so 2^-7 max|ref| (two bf16 ulps at the top of the range); fp32 gradients
 summed over thousands of terms in another order than the plain version's
-(with atomics for K5 and K6) get 1e-3 max|ref|."""
+(with atomics for K5) get 1e-3 max|ref|."""
 import ctypes
 
 import pytest
@@ -355,6 +357,109 @@ def test_deformable_backward_kernel_matches_plain(gen, dtype):
         _close(got[0][lvl], ref[0][lvl], feat_tol, f"level {lvl}")
     _close(got[1], ref[1], SUM_TOL, "g_points_2d")
     _close(got[2], ref[2], SUM_TOL, "g_weights")
+
+
+DEFORM_SHAPES = ((40, 72), (20, 36), (10, 18), (5, 9))
+
+
+def _deformable_case(gen, dtype, levels=4, c=128, b=2, hot=0, outside=0):
+    """Features, locations past the image edges (``hot`` pairs of camera 0
+    of the first batch element on one location, the first ``outside``
+    anchors outside every camera), weights, cotangents."""
+    cams, g, k, p = 3, 4, 5, 300
+    shapes = DEFORM_SHAPES[:levels]
+    feats = [randn(gen, b, cams, hh, ww, c).to(dtype) for hh, ww in shapes]
+    loc = torch.rand(b, p * k, cams, 2, generator=gen,
+                     device="cuda") * 1.2 - 0.1
+    if hot:
+        loc[0, :hot, 0] = torch.tensor([0.43, 0.61], device="cuda")
+    if outside:
+        loc[:, :outside * k] = 1.5
+    wts = torch.rand(b, p * k, cams, levels, g, generator=gen, device="cuda")
+    g_out = randn(gen, b, p, c)
+    return feats, loc, wts, k, g_out
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deformable_kernel_levels_and_outside_anchors(gen, dtype, levels):
+    """K3 with one to four levels (a template parameter of the kernel) and
+    anchors whose key points miss every camera (their rows are zero)."""
+    feats, loc, wts, k, _ = _deformable_case(gen, dtype, levels, outside=7)
+    got = deformable.deformable_aggregation_cuda(feats, loc, wts, k)
+    ref = deformable.deformable_aggregation_plain(feats, loc, wts, k)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert not got[:, :7].any()
+
+
+def _k6_close(got, ref, dtype):
+    feat_tol = BF16_TOL if dtype == torch.bfloat16 else SUM_TOL
+    for lvl, (a, r) in enumerate(zip(got[0], ref[0])):
+        assert a.dtype == dtype
+        _close(a, r, feat_tol, f"level {lvl}")
+    _close(got[1], ref[1], SUM_TOL, "g_points_2d")
+    _close(got[2], ref[2], SUM_TOL, "g_weights")
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deformable_backward_widths_and_levels(gen, dtype, c, levels):
+    """K6 at every channel width the kernels take and one to four levels,
+    B = 2: its bins equal the plain bins, its gradients the plain
+    backward's."""
+    feats, loc, wts, k, g_out = _deformable_case(gen, dtype, levels, c)
+    shapes = [tuple(f.shape[2:4]) for f in feats]
+    bins = deformable.bin_samples_cuda(loc, shapes)
+    ref_bins = deformable.bin_samples_plain(loc, shapes)
+    e = bins.num_entries
+    assert e == ref_bins.num_entries
+    assert torch.equal(bins.entries[:e], ref_bins.entries)
+    assert torch.equal(bins.pixel_start, ref_bins.pixel_start)
+    got = deformable.deformable_aggregation_backward_cuda(feats, loc, wts, k,
+                                                          g_out)
+    ref = deformable.deformable_aggregation_backward_plain(feats, loc, wts, k,
+                                                           g_out)
+    _k6_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deformable_backward_hot_pixel_repeats_its_bits(gen, dtype):
+    """A pixel of 600 entries (split over the block's warps), and every
+    pixel's list: K6 agrees with the plain backward and with the gradients
+    gathered from the plain bins, and a second call gives the same bits."""
+    feats, loc, wts, k, g_out = _deformable_case(gen, dtype, hot=600)
+    shapes = [tuple(f.shape[2:4]) for f in feats]
+    bins = deformable.bin_samples_cuda(loc, shapes)
+    assert bins.stats()["longest_list"] >= 600
+    got = deformable.deformable_aggregation_backward_cuda(feats, loc, wts, k,
+                                                          g_out)
+    again = deformable.deformable_aggregation_backward_cuda(
+        feats, loc, wts, k, g_out, bins=bins)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got[0] + [got[1], got[2]], again[0] + [again[1], again[2]]))
+    ref = deformable.deformable_aggregation_backward_plain(feats, loc, wts, k,
+                                                           g_out)
+    _k6_close(got, ref, dtype)
+    gathered = deformable.feature_grads_from_bins_plain(
+        feats, loc, wts, k, g_out, bins)
+    feat_tol = BF16_TOL if dtype == torch.bfloat16 else SUM_TOL
+    for lvl, (a, r) in enumerate(zip(got[0], gathered)):
+        _close(a, r, feat_tol, f"gathered level {lvl}")
+
+
+def test_deformable_backward_makes_no_host_sync(gen):
+    """K6's call (its binning included) reads nothing back to the host."""
+    feats, loc, wts, k, g_out = _deformable_case(gen, torch.bfloat16)
+    deformable.deformable_aggregation_backward_cuda(feats, loc, wts, k, g_out)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        deformable.deformable_aggregation_backward_cuda(feats, loc, wts, k,
+                                                        g_out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("per_axis", [False, True])
