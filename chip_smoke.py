@@ -2,7 +2,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: the GaussianFormer-2 configs
 (prob_gs6400, prob_gs12800 and prob_gs25600) and the v1 GaussianFormer
 configs (gs25600_solid and gs144000), each its inference and training step;
-the prob head's threshold label mode and per-axis splat boxes.
+the prob head's threshold label mode and per-axis splat boxes; the port's
+bench, and its train and eval CLIs on a nuScenes-shaped set of files.
 
     python3 chip_smoke.py
 
@@ -84,7 +85,26 @@ Phases (each raises on failure, so the script exits nonzero):
             inputs;
 11. per-axis K4 and K7 on Prob-256's head inputs packed again with
             per-axis boxes, against their plain versions (printed, not in
-            the kernels line: no shipped config runs this path).
+            the kernels line: no shipped config runs this path);
+12. bench   the port's bench (``gaussianformer_tpu_torch.bench.run``) on
+            prob_gs6400 at batch 1, in this process, run first (after the
+            build, before phase 2), as a bench process of its own would run
+            it: its JSON line, its launch counts (11 frames' worth: every
+            count set to 0 just before, read just after), and, after phase
+            2, its ms/frame within 15% of phase 2's frame_ms (both include
+            the host's share of a frame, which moves with the shared host);
+13. entry   the entry points on a 2-frame nuScenes-shaped set of files in a
+            temporary directory (six 1600 x 900 PNGs a frame, SurroundOcc
+            labels, the infos pkl): the native codec loaded; the train CLI
+            (``python -m gaussianformer_tpu_torch.train``'s ``main``) for
+            one epoch of prob_gs6400 at batch 1 with two loader workers and
+            --iter-resume (2 train steps and the epoch's eval of 2 frames,
+            counted as one run); ``latest`` names ckpt_000000002.pt and a
+            new Trainer resumes at epoch 1, iteration 2; the eval CLI on
+            that checkpoint (2 frames, counted): a finite mIoU and counts
+            equal to a direct forward of the same batches with the
+            generator seeded as eval seeds it. Wall times of the data, the
+            steps and the eval, and the checkpoint's size.
 
 The second-to-last lines are the card's name and power limit and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -257,11 +277,15 @@ def main() -> int:
     mods = types.SimpleNamespace(dcn=dcn, fps=fps, deformable=deformable,
                                  splat=splat, lib=_lib, ops_splat=ops_splat)
 
+    # ---- 12. the port's bench, first, as a process of its own runs it
+    bench = bench_phase(mods)
+
     # ---- 2. full forward
     cfg = get_config("prob_gs6400")
     model, batch = build(cfg, build_segmentor, synthetic_batch)
     fwd = frame_phase(cfg, model, batch, mods, EXPECTED_LAUNCHES, FRAMES)
     frame_ms, wall_ms = fwd["frame_ms"], fwd["frame_wall_ms"]
+    check_bench(bench, frame_ms)
 
     # ---- 3. kernels against their plain versions on the captured inputs
     rows = []
@@ -317,6 +341,9 @@ def main() -> int:
     family = prob_family_phase(get_config, build_segmentor, synthetic_batch,
                                mods, rows)
 
+    # ---- 13. the train and eval CLIs
+    entry = entry_phase(mods)
+
     flat = []
     for r in rows:
         flat += [r] + r.pop("extra_rows", [])
@@ -325,7 +352,7 @@ def main() -> int:
                     "frame_wall_ms": wall_ms,
                     "frame_idle_share": fwd["frame_idle_share"],
                     **{k: v for k, v in train.items() if k != "launches"},
-                    **v1, **family}))
+                    **v1, **family, "bench": bench, **entry}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -598,6 +625,162 @@ def prob_family_phase(get_config, build_segmentor, synthetic_batch, mods,
     del model, batch, fwd
     torch.cuda.empty_cache()
     return summary
+
+
+def counted(mods, what, expected, run):
+    """``run()`` with every launch count set to 0 just before and read just
+    after; raises unless the counts are ``expected``. Returns its result."""
+    import torch
+    mods.lib.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = dict(mods.lib.LAUNCHES)
+    log(f"# {what} launches: {launches}")
+    if launches != expected:
+        raise RuntimeError(f"{what} launch counts {launches} != {expected}")
+    return out
+
+
+def times(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def bench_phase(mods):
+    """Phase 12: the port's bench on prob_gs6400, batch 1. Returns its JSON
+    record with its ms/frame."""
+    import torch
+    from gaussianformer_tpu_torch import bench
+    frames = 1 + bench.ITERS
+    record, ms = counted(mods, "bench", times(EXPECTED_LAUNCHES, frames),
+                         lambda: bench.run("prob_gs6400", 1, "cuda"))
+    if record["metric"] != "prob_gs6400_infer_fps_per_chip":
+        raise RuntimeError(f"bench metric {record['metric']}")
+    torch.cuda.empty_cache()
+    return dict(record, ms_per_frame=ms)
+
+
+def check_bench(bench, frame_ms):
+    """The bench's ms/frame against phase 2's: within 15%, or the bench
+    times something else."""
+    ms = bench["ms_per_frame"]
+    bench["frame_ms_ratio"] = ratio = ms / frame_ms
+    log(f"# bench: {ms:.3f} ms/frame against phase 2's {frame_ms:.3f} "
+        f"(ratio {ratio:.4f}, required within 15%)")
+    if not abs(ratio - 1.0) <= 0.15:
+        raise RuntimeError(f"the bench's {ms:.3f} ms/frame is not phase 2's "
+                           f"{frame_ms:.3f} within 15%")
+
+
+def entry_phase(mods):
+    """Phase 13: the train and eval CLIs at full width on a nuScenes-shaped
+    set of files. Returns the summary numbers."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from gaussianformer_tpu_torch import eval as eval_cli
+    from gaussianformer_tpu_torch import native
+    from gaussianformer_tpu_torch.configs import get_config
+    from gaussianformer_tpu_torch.data import DataLoader, ShardedSampler
+    from gaussianformer_tpu_torch.data.synthetic import write_nuscenes_files
+    from gaussianformer_tpu_torch.metrics import MeanIoU, compute_iou
+    from gaussianformer_tpu_torch.train import __main__ as train_cli
+    from gaussianformer_tpu_torch.train.runner import Trainer, build_dataset
+    from gaussianformer_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    if native.load() is None:
+        raise RuntimeError("the native codec did not build or load")
+    log(f"# native codec: {native.library_path().name}")
+    cfg = get_config("prob_gs6400")
+    root = tempfile.mkdtemp(prefix="gf_entry_")
+    try:
+        t0 = time.perf_counter()
+        paths = write_nuscenes_files(root, num_samples=2)
+        write_s = time.perf_counter() - t0
+        work = os.path.join(root, "work")
+        files = ["--data-root", paths["data_root"], "--anno-root",
+                 paths["anno_root"], "--occ-path", paths["occ_path"],
+                 "--num-workers", "2", "--config", cfg.name,
+                 "--work-dir", work]
+
+        t0 = time.perf_counter()
+        trainer = counted(
+            mods, "train CLI (2 steps, the epoch's eval of 2 frames)",
+            {k: 2 * (EXPECTED_TRAIN_LAUNCHES[k] + EXPECTED_LAUNCHES[k])
+             for k in NO_LAUNCH},
+            lambda: train_cli.main(files + [
+                "--max-epochs", "1", "--batch-size", "1",
+                "--print-freq", "1", "--iter-resume"]))
+        train_s = time.perf_counter() - t0
+        del trainer
+        torch.cuda.empty_cache()
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            steps = [json.loads(line) for line in f]
+        for rec in steps:
+            if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
+                raise RuntimeError(f"train CLI step {rec}")
+        latest = latest_checkpoint(work)
+        if latest is None or os.path.basename(latest) != "ckpt_000000002.pt":
+            raise RuntimeError(f"latest checkpoint {latest}")
+        ckpt_mib = os.path.getsize(latest) / 2**20
+        log(f"# train CLI: {len(steps)} steps, data "
+            f"{[round(r['data_time'], 3) for r in steps]} s, step "
+            f"{[round(r['step_time'], 3) for r in steps]} s (host wall, "
+            f"the metrics read in each), losses "
+            f"{[round(r['loss'], 4) for r in steps]}; the whole CLI "
+            f"{train_s:.1f} s (model build, two loaders' workers, the "
+            f"epoch's eval); {os.path.basename(latest)} {ckpt_mib:.1f} MiB")
+
+        loader = DataLoader(build_dataset(
+            cfg, "train", data_root=paths["data_root"],
+            anno_root=paths["anno_root"], occ_path=paths["occ_path"]), 1)
+        resumed = Trainer(cfg, loader, None, work, device="cuda")
+        resumed.init_state()
+        if not (resumed.try_resume()
+                and (resumed.epoch, resumed.global_iter) == (1, 2)):
+            raise RuntimeError(f"resume: epoch {resumed.epoch}, iteration "
+                               f"{resumed.global_iter}")
+        log("# resumed in a new Trainer at epoch 1, iteration 2")
+        del resumed, loader
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ev = counted(mods, "eval CLI (2 frames)",
+                     times(EXPECTED_LAUNCHES, 2),
+                     lambda: eval_cli.main(files + ["--ckpt", latest]))
+        eval_s = time.perf_counter() - t0
+        miou, occ_iou, _ = compute_iou(ev.last_counts)
+        if not (math.isfinite(miou) and math.isfinite(occ_iou)):
+            raise RuntimeError(f"eval mIoU {miou}, occupancy IoU {occ_iou}")
+        metric = MeanIoU()
+        gen = torch.Generator(device="cuda").manual_seed(ev.seed)
+        direct = DataLoader(ev.val_loader.dataset, 1, sampler=ShardedSampler(
+            len(ev.val_loader.dataset), shuffle=False))
+        with torch.inference_mode():
+            for batch in direct:
+                b = {k: v.cuda() for k, v in batch.items()}
+                out = ev.model(b["imgs"], b["projection_mat"], b["image_wh"],
+                               b["occ_xyz"], b["occ_label"],
+                               b["occ_cam_mask"], generator=gen)
+                metric.update(out["final_occ"], out["sampled_label"],
+                              out["occ_mask"])
+        same = bool(np.array_equal(ev.last_counts, metric.counts))
+        log(f"# eval CLI: mIoU {miou:.4f}%, occupancy IoU {occ_iou:.4f}% "
+            f"(random weights, random labels), {eval_s:.1f} s; its counts "
+            f"equal a direct forward's: {same}")
+        if not same:
+            raise RuntimeError(f"eval counts {ev.last_counts.tolist()} != "
+                               f"direct {metric.counts.tolist()}")
+        del ev, out, b
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(entry_write_s=write_s, entry_train_cli_s=train_s,
+                entry_eval_cli_s=eval_s, entry_ckpt_mib=ckpt_mib,
+                entry_data_s=[r["data_time"] for r in steps],
+                entry_step_s=[r["step_time"] for r in steps],
+                entry_miou=miou, entry_occ_iou=occ_iou)
 
 
 def check_per_axis(fwd_calls, train_calls, p, mods, rows):

@@ -42,6 +42,19 @@ class OptimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The input pipeline (reference config data blocks): the batch, the
+    augmentation limits of ``data.transforms.sample_augmentation`` and the
+    image normalisation. The image size is the model's ``input_size``."""
+    batch_size: int = 1
+    resize_lim: Tuple[float, float] = (1.0, 1.0)
+    rot_lim: Tuple[float, float] = (0.0, 0.0)
+    rand_flip: bool = True
+    img_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
+    img_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+
+
+@dataclasses.dataclass(frozen=True)
 class GaussianFormerConfig:
     name: str
     version: int = 2                  # 1: GaussianFormer, 2: GaussianFormer-2
@@ -105,6 +118,7 @@ class GaussianFormerConfig:
     use_pixel_distribution_loss: bool = True
     # training
     optim: OptimConfig = OptimConfig()
+    data: DataConfig = DataConfig()
 
     @property
     def total_anchors(self) -> int:

@@ -1,17 +1,19 @@
 """The train step (gaussianformer_tpu/train/step.py, ``make_train_step``):
 forward with ``training=True``, the loss stack, backward, the global
 gradient norm over every parameter (frozen ones included), clipping to
-``grad_max_norm`` and the AdamW update at the schedule's lr."""
+``grad_max_norm`` and the AdamW update at the schedule's lr, every step or,
+with gradient accumulation, on the mean of every k steps' gradients."""
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from ..losses.bce import pixel_distribution_loss
 from ..losses.multi_loss import LossTerm, MultiLoss
 from ..losses.occupancy import OccupancyLossCfg, occupancy_loss
+from .optim import GradientAccumulation
 
 
 def build_loss(cfg) -> MultiLoss:
@@ -66,18 +68,30 @@ def apply_gradients(model, optimizer: torch.optim.Optimizer,
 
 def train_step(model, optimizer: torch.optim.Optimizer,
                schedule: Callable[[int], float], loss_fn: MultiLoss,
-               batch: Dict[str, torch.Tensor],
-               generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """One step on ``batch`` (the keys of ``data.synthetic``): forward,
-    loss, backward, :func:`apply_gradients`. Returns ``{loss, <term>...,
-    grad_norm}`` as detached tensors, ``grad_norm`` before clipping."""
+               batch: Dict[str, torch.Tensor], generator: torch.Generator,
+               apply_loss_layers: Optional[Sequence[int]] = None,
+               accumulation: Optional[GradientAccumulation] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One step on ``batch`` (the keys of ``data.synthetic``): forward
+    (``apply_loss_layers``: the supervised refine layers a ``random_k``
+    config drew on the host), loss, backward, :func:`apply_gradients`;
+    with ``accumulation``, the update only on its every k-th call. Returns
+    ``{loss, <term>..., grad_norm}`` as detached tensors, ``grad_norm`` of
+    this call's gradients before clipping."""
     model.zero_grad(set_to_none=True)
     out = model(batch["imgs"], batch["projection_mat"], batch["image_wh"],
                 batch["occ_xyz"], batch["occ_label"], batch["occ_cam_mask"],
-                training=True, generator=generator)
+                training=True, generator=generator,
+                apply_loss_layers=apply_loss_layers)
     loss, logs = loss_fn(out)
     loss.backward()
-    norm = apply_gradients(model, optimizer, schedule)
+    if accumulation is None:
+        norm = apply_gradients(model, optimizer, schedule)
+    else:
+        norm = global_norm([p.grad for p in model.parameters()
+                            if p.grad is not None])
+        if accumulation.add(model):
+            apply_gradients(model, optimizer, schedule)
     metrics = {"loss": loss.detach(),
                **{k: v.detach() for k, v in logs.items()}}
     metrics["grad_norm"] = norm.detach()

@@ -201,11 +201,17 @@ def test_list_configs_and_full_width_values():
     for name in names:
         cfg, jcfg = get_config(name), jax_get_config(name)
         for f in dataclasses.fields(cfg):
-            if f.name in ("optim", "grid") or not hasattr(jcfg, f.name):
+            if (f.name in ("optim", "grid", "data")
+                    or not hasattr(jcfg, f.name)):
                 continue
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), \
                 (name, f.name)
         assert dataclasses.asdict(cfg.optim) == dataclasses.asdict(jcfg.optim)
+        for f in dataclasses.fields(cfg.data):
+            assert getattr(cfg.data, f.name) == getattr(jcfg.data, f.name), \
+                (name, f.name)
+        assert cfg.input_size == jcfg.data.input_size
+        assert cfg.num_cams == jcfg.data.num_cams
         jg = jcfg.splat_grid()
         assert dataclasses.asdict(cfg.grid) == dataclasses.asdict(jg), name
         assert cfg.operation_order == jcfg.operation_order
