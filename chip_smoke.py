@@ -3,7 +3,8 @@
 (prob_gs6400, prob_gs12800 and prob_gs25600) and the v1 GaussianFormer
 configs (gs25600_solid and gs144000), each its inference and training step;
 the prob head's threshold label mode and per-axis splat boxes; the port's
-bench, and its train and eval CLIs on a nuScenes-shaped set of files.
+bench, and its train and eval CLIs on a nuScenes-shaped set of files; the
+model and loss options no shipped config sets; the CLIs in DDP.
 
     python3 chip_smoke.py
 
@@ -104,7 +105,30 @@ Phases (each raises on failure, so the script exits nonzero):
             that checkpoint (2 frames, counted): a finite mIoU and counts
             equal to a direct forward of the same batches with the
             generator seeded as eval seeds it. Wall times of the data, the
-            steps and the eval, and the checkpoint's size.
+            steps and the eval, and the checkpoint's size;
+14. options the options no shipped config sets, as the JAX package reaches
+            them (the segmentor's ``module_overrides``): gs25600_solid with
+            polar refinement ("loop"), ``pts_init`` from 25,600 anchor
+            points (``_prepare_anchor_points`` on a seeded synthetic scan),
+            ``ffn_pre_norm``, the KITTI column order with the empty label 0,
+            and the softmax focal loss with scal, Lovasz and dice; and
+            prob_gs6400 with ``ffn_pre_norm``, the KITTI order and the full
+            loss stack (every OccupancyLoss switch, BCE, density, depth, the
+            pixel loss through its sigmoid). Each a counted frame (launches
+            of phase 8 or 2) and a counted train step (of phase 8 or 5),
+            every output, loss term and the gradient norm finite, frame and
+            step times and peak memory; K4 and K7 against their plain
+            versions on the variant's own inputs with the phase 3 and 6
+            tolerances (the prob labels equal but for counted near-ties);
+            both tiny variants GPU against CPU under phase 4's share gates;
+15. ddp     the train CLI under ``python -m torch.distributed.run
+            --standalone --nproc_per_node=1`` on phase 13's files, seed and
+            flags: its log shows DDP over NCCL, its losses equal phase 13's
+            (step 1 within 1e-5 relative, step 2 within 1e-3), rank 0 wrote
+            ckpt_000000002.pt and ``latest``; the eval CLI under the same
+            launcher on phase 13's checkpoint logs phase 13's counts. The
+            card's host has one card: a world of two is held on the CPU
+            (gloo, tests/test_torch_port_ddp.py).
 
 The second-to-last lines are the card's name and power limit and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -115,8 +139,10 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -341,8 +367,20 @@ def main() -> int:
     family = prob_family_phase(get_config, build_segmentor, synthetic_batch,
                                mods, rows)
 
-    # ---- 13. the train and eval CLIs
-    entry = entry_phase(mods)
+    root = tempfile.mkdtemp(prefix="gf_entry_")
+    try:
+        # ---- 13. the train and eval CLIs
+        entry = entry_phase(mods, root)
+
+        # ---- 14. the options no shipped config sets
+        options = options_phase(get_config, build_segmentor,
+                                synthetic_batch, mods, rows)
+
+        # ---- 15. the CLIs under torch.distributed.run, DDP over NCCL
+        ddp = ddp_phase(entry, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    entry = {k: v for k, v in entry.items() if not k.startswith("_")}
 
     flat = []
     for r in rows:
@@ -352,7 +390,8 @@ def main() -> int:
                     "frame_wall_ms": wall_ms,
                     "frame_idle_share": fwd["frame_idle_share"],
                     **{k: v for k, v in train.items() if k != "launches"},
-                    **v1, **family, "bench": bench, **entry}))
+                    **v1, **family, "bench": bench, **entry, **options,
+                    **ddp}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -441,7 +480,9 @@ def frame_phase(cfg, model, batch, mods, expected, frames):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         with torch.inference_mode():
             return model(batch["imgs"], batch["projection_mat"],
-                         batch["image_wh"], batch["occ_xyz"], generator=gen)
+                         batch["image_wh"], batch["occ_xyz"],
+                         anchor_points=batch.get("anchor_points"),
+                         generator=gen)
 
     torch.cuda.reset_peak_memory_stats()
     cap = Capture(capture_specs(mods, backward=False))
@@ -671,12 +712,11 @@ def check_bench(bench, frame_ms):
                            f"{frame_ms:.3f} within 15%")
 
 
-def entry_phase(mods):
+def entry_phase(mods, root):
     """Phase 13: the train and eval CLIs at full width on a nuScenes-shaped
-    set of files. Returns the summary numbers."""
+    set of files written under ``root``. Returns the summary numbers and,
+    for phase 15, what the run left (``_`` keys)."""
     import os
-    import shutil
-    import tempfile
     import numpy as np
     import torch
     from gaussianformer_tpu_torch import eval as eval_cli
@@ -693,94 +733,355 @@ def entry_phase(mods):
         raise RuntimeError("the native codec did not build or load")
     log(f"# native codec: {native.library_path().name}")
     cfg = get_config("prob_gs6400")
-    root = tempfile.mkdtemp(prefix="gf_entry_")
-    try:
-        t0 = time.perf_counter()
-        paths = write_nuscenes_files(root, num_samples=2)
-        write_s = time.perf_counter() - t0
-        work = os.path.join(root, "work")
-        files = ["--data-root", paths["data_root"], "--anno-root",
-                 paths["anno_root"], "--occ-path", paths["occ_path"],
-                 "--num-workers", "2", "--config", cfg.name,
-                 "--work-dir", work]
+    t0 = time.perf_counter()
+    paths = write_nuscenes_files(root, num_samples=2)
+    write_s = time.perf_counter() - t0
+    work = os.path.join(root, "work")
+    files = ["--data-root", paths["data_root"], "--anno-root",
+             paths["anno_root"], "--occ-path", paths["occ_path"],
+             "--num-workers", "2", "--config", cfg.name,
+             "--work-dir", work]
 
-        t0 = time.perf_counter()
-        trainer = counted(
-            mods, "train CLI (2 steps, the epoch's eval of 2 frames)",
-            {k: 2 * (EXPECTED_TRAIN_LAUNCHES[k] + EXPECTED_LAUNCHES[k])
-             for k in NO_LAUNCH},
-            lambda: train_cli.main(files + [
-                "--max-epochs", "1", "--batch-size", "1",
-                "--print-freq", "1", "--iter-resume"]))
-        train_s = time.perf_counter() - t0
-        del trainer
-        torch.cuda.empty_cache()
-        with open(os.path.join(work, "metrics.jsonl")) as f:
-            steps = [json.loads(line) for line in f]
-        for rec in steps:
-            if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
-                raise RuntimeError(f"train CLI step {rec}")
-        latest = latest_checkpoint(work)
-        if latest is None or os.path.basename(latest) != "ckpt_000000002.pt":
-            raise RuntimeError(f"latest checkpoint {latest}")
-        ckpt_mib = os.path.getsize(latest) / 2**20
-        log(f"# train CLI: {len(steps)} steps, data "
-            f"{[round(r['data_time'], 3) for r in steps]} s, step "
-            f"{[round(r['step_time'], 3) for r in steps]} s (host wall, "
-            f"the metrics read in each), losses "
-            f"{[round(r['loss'], 4) for r in steps]}; the whole CLI "
-            f"{train_s:.1f} s (model build, two loaders' workers, the "
-            f"epoch's eval); {os.path.basename(latest)} {ckpt_mib:.1f} MiB")
+    t0 = time.perf_counter()
+    trainer = counted(
+        mods, "train CLI (2 steps, the epoch's eval of 2 frames)",
+        {k: 2 * (EXPECTED_TRAIN_LAUNCHES[k] + EXPECTED_LAUNCHES[k])
+         for k in NO_LAUNCH},
+        lambda: train_cli.main(files + [
+            "--max-epochs", "1", "--batch-size", "1",
+            "--print-freq", "1", "--iter-resume"]))
+    train_s = time.perf_counter() - t0
+    del trainer
+    torch.cuda.empty_cache()
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    for rec in steps:
+        if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
+            raise RuntimeError(f"train CLI step {rec}")
+    latest = latest_checkpoint(work)
+    if latest is None or os.path.basename(latest) != "ckpt_000000002.pt":
+        raise RuntimeError(f"latest checkpoint {latest}")
+    ckpt_mib = os.path.getsize(latest) / 2**20
+    log(f"# train CLI: {len(steps)} steps, data "
+        f"{[round(r['data_time'], 3) for r in steps]} s, step "
+        f"{[round(r['step_time'], 3) for r in steps]} s (host wall, "
+        f"the metrics read in each), losses "
+        f"{[round(r['loss'], 4) for r in steps]}; the whole CLI "
+        f"{train_s:.1f} s (model build, two loaders' workers, the "
+        f"epoch's eval); {os.path.basename(latest)} {ckpt_mib:.1f} MiB")
 
-        loader = DataLoader(build_dataset(
-            cfg, "train", data_root=paths["data_root"],
-            anno_root=paths["anno_root"], occ_path=paths["occ_path"]), 1)
-        resumed = Trainer(cfg, loader, None, work, device="cuda")
-        resumed.init_state()
-        if not (resumed.try_resume()
-                and (resumed.epoch, resumed.global_iter) == (1, 2)):
-            raise RuntimeError(f"resume: epoch {resumed.epoch}, iteration "
-                               f"{resumed.global_iter}")
-        log("# resumed in a new Trainer at epoch 1, iteration 2")
-        del resumed, loader
-        torch.cuda.empty_cache()
+    loader = DataLoader(build_dataset(
+        cfg, "train", data_root=paths["data_root"],
+        anno_root=paths["anno_root"], occ_path=paths["occ_path"]), 1)
+    resumed = Trainer(cfg, loader, None, work, device="cuda")
+    resumed.init_state()
+    if not (resumed.try_resume()
+            and (resumed.epoch, resumed.global_iter) == (1, 2)):
+        raise RuntimeError(f"resume: epoch {resumed.epoch}, iteration "
+                           f"{resumed.global_iter}")
+    log("# resumed in a new Trainer at epoch 1, iteration 2")
+    del resumed, loader
+    torch.cuda.empty_cache()
 
-        t0 = time.perf_counter()
-        ev = counted(mods, "eval CLI (2 frames)",
-                     times(EXPECTED_LAUNCHES, 2),
-                     lambda: eval_cli.main(files + ["--ckpt", latest]))
-        eval_s = time.perf_counter() - t0
-        miou, occ_iou, _ = compute_iou(ev.last_counts)
-        if not (math.isfinite(miou) and math.isfinite(occ_iou)):
-            raise RuntimeError(f"eval mIoU {miou}, occupancy IoU {occ_iou}")
-        metric = MeanIoU()
-        gen = torch.Generator(device="cuda").manual_seed(ev.seed)
-        direct = DataLoader(ev.val_loader.dataset, 1, sampler=ShardedSampler(
-            len(ev.val_loader.dataset), shuffle=False))
-        with torch.inference_mode():
-            for batch in direct:
-                b = {k: v.cuda() for k, v in batch.items()}
-                out = ev.model(b["imgs"], b["projection_mat"], b["image_wh"],
-                               b["occ_xyz"], b["occ_label"],
-                               b["occ_cam_mask"], generator=gen)
-                metric.update(out["final_occ"], out["sampled_label"],
-                              out["occ_mask"])
-        same = bool(np.array_equal(ev.last_counts, metric.counts))
-        log(f"# eval CLI: mIoU {miou:.4f}%, occupancy IoU {occ_iou:.4f}% "
-            f"(random weights, random labels), {eval_s:.1f} s; its counts "
-            f"equal a direct forward's: {same}")
-        if not same:
-            raise RuntimeError(f"eval counts {ev.last_counts.tolist()} != "
-                               f"direct {metric.counts.tolist()}")
-        del ev, out, b
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return dict(entry_write_s=write_s, entry_train_cli_s=train_s,
+    t0 = time.perf_counter()
+    ev = counted(mods, "eval CLI (2 frames)",
+                 times(EXPECTED_LAUNCHES, 2),
+                 lambda: eval_cli.main(files + ["--ckpt", latest]))
+    eval_s = time.perf_counter() - t0
+    miou, occ_iou, _ = compute_iou(ev.last_counts)
+    if not (math.isfinite(miou) and math.isfinite(occ_iou)):
+        raise RuntimeError(f"eval mIoU {miou}, occupancy IoU {occ_iou}")
+    metric = MeanIoU()
+    gen = torch.Generator(device="cuda").manual_seed(ev.seed)
+    direct = DataLoader(ev.val_loader.dataset, 1, sampler=ShardedSampler(
+        len(ev.val_loader.dataset), shuffle=False))
+    with torch.inference_mode():
+        for batch in direct:
+            b = {k: v.cuda() for k, v in batch.items()}
+            out = ev.model(b["imgs"], b["projection_mat"], b["image_wh"],
+                           b["occ_xyz"], b["occ_label"],
+                           b["occ_cam_mask"], generator=gen)
+            metric.update(out["final_occ"], out["sampled_label"],
+                          out["occ_mask"])
+    same = bool(np.array_equal(ev.last_counts, metric.counts))
+    log(f"# eval CLI: mIoU {miou:.4f}%, occupancy IoU {occ_iou:.4f}% "
+        f"(random weights, random labels), {eval_s:.1f} s; its counts "
+        f"equal a direct forward's: {same}")
+    if not same:
+        raise RuntimeError(f"eval counts {ev.last_counts.tolist()} != "
+                           f"direct {metric.counts.tolist()}")
+    eval_counts = ev.last_counts.tolist()
+    del ev, out, b
+    torch.cuda.empty_cache()
+    return dict(_files=files[:8], _latest=latest, _steps=steps,
+                _eval_counts=eval_counts, entry_write_s=write_s, entry_train_cli_s=train_s,
                 entry_eval_cli_s=eval_s, entry_ckpt_mib=ckpt_mib,
                 entry_data_s=[r["data_time"] for r in steps],
                 entry_step_s=[r["step_time"] for r in steps],
                 entry_miou=miou, entry_occ_iou=occ_iou)
+
+
+# phase 14: the options no shipped config sets, as the JAX package reaches
+# them (the dicts of segmentor_cfg(), here the segmentor's module_overrides)
+V1_OPTIONS = {"lifter_cfg": {"pts_init": True},
+              "encoder_cfg": {"refine_cfg": {"xyz_coordinate": "polar",
+                                             "phi_activation": "loop"}},
+              "head_cfg": {"dataset_type": "kitti"}}
+PROB_OPTIONS = {"head_cfg": {"dataset_type": "kitti"}}
+# the FFN's pre-norm, and the empty label of the KITTI column order
+OPTION_FIELDS = dict(ffn_pre_norm=True, empty_label=0)
+
+
+def anchor_points_for(cfg, seed):
+    """The v1 lifter's ``pts_init`` anchor points of one sample, [P, 3] in
+    [0, 1]^3: a seeded synthetic scan (a ring of returns from 2 to 60 m,
+    fewer points than anchors, so the jittered padding runs) through the
+    port's ``data.transforms._prepare_anchor_points``."""
+    import numpy as np
+    from gaussianformer_tpu_torch.data.transforms import \
+        _prepare_anchor_points
+    rng = np.random.RandomState(seed)
+    n = cfg.num_anchor * 4 // 5
+    r, a = rng.uniform(2.0, 60.0, n), rng.uniform(0.0, 2 * math.pi, n)
+    scan = np.stack([r * np.cos(a), r * np.sin(a),
+                     rng.uniform(-3.0, 2.0, n)], -1).astype(np.float32)
+    return _prepare_anchor_points(scan, cfg.pc_range, cfg.num_anchor, rng,
+                                  0.2)
+
+
+def options_loss(cfg):
+    """The loss stacks of phase 14. v1: the softmax focal loss in place of
+    the CE, with sem/geo scal, Lovasz and dice. Prob: OccupancyLoss with
+    every switch on (the sigmoid focal loss, scal, dice, ignore_empty, the
+    frequency weights), plus BCE, density, depth and the pixel loss through
+    its sigmoid."""
+    import functools
+    from gaussianformer_tpu_torch.configs import MANUAL_CLASS_WEIGHT
+    from gaussianformer_tpu_torch.losses import bce
+    from gaussianformer_tpu_torch.losses.multi_loss import LossTerm, MultiLoss
+    from gaussianformer_tpu_torch.losses.occupancy import (OccupancyLossCfg,
+                                                           occupancy_loss)
+    occ_keys = ("pred_occ", "sampled_label", "occ_mask", "sampled_xyz")
+    common = dict(empty_label=cfg.empty_label, lovasz_ignore=cfg.empty_label,
+                  use_focal=True, use_sem_geo_scal=True, use_dice=True)
+    if cfg.version == 1:
+        occ = OccupancyLossCfg(lovasz_use_softmax=True,
+                               manual_class_weight=MANUAL_CLASS_WEIGHT,
+                               focal_use_sigmoid=False, **common)
+        return MultiLoss([LossTerm("OccupancyLoss", 1.0, functools.partial(
+            occupancy_loss, occ), occ_keys)])
+    occ = OccupancyLossCfg(ignore_empty=True, **common)
+    e = cfg.empty_label
+    return MultiLoss([
+        LossTerm("OccupancyLoss", 1.0,
+                 functools.partial(occupancy_loss, occ), occ_keys),
+        LossTerm("BinaryCrossEntropyLoss", 1.0, functools.partial(
+            bce.binary_cross_entropy_loss, empty_label=e,
+            class_weights=(0.4, 1.6)),
+            ("bin_logits", "sampled_label", "occ_mask")),
+        LossTerm("DensityLoss", 0.5, functools.partial(
+            bce.density_loss, empty_label=e, thresh=0.1),
+            ("density", "sampled_label", "occ_mask")),
+        LossTerm("OccDepthLoss", 0.3, bce.occ_depth_loss,
+                 ("pixel_logits", "pixel_gt")),
+        LossTerm("PixelDistributionLoss", 1.0, functools.partial(
+            bce.pixel_distribution_loss, use_sigmoid=True),
+            ("pixel_logits", "pixel_gt"))])
+
+
+def options_phase(get_config, build_segmentor, synthetic_batch, mods, rows):
+    """Phase 14: two models with the options on at full width, each a
+    counted frame and a counted train step with K4 and K7 against their
+    plain versions on the model's own inputs; then both tiny variants, GPU
+    against CPU. Appends the kernel rows to ``rows`` and returns the
+    summary numbers."""
+    import dataclasses
+    import torch
+    summary = {}
+    variants = (("gs25600_solid", V1_OPTIONS, V1_LAUNCHES, V1_TRAIN_LAUNCHES),
+                ("prob_gs6400", PROB_OPTIONS, EXPECTED_LAUNCHES,
+                 EXPECTED_TRAIN_LAUNCHES))
+    for base, overrides, fwd_counts, train_counts in variants:
+        cfg = dataclasses.replace(get_config(base), name=f"{base}_options",
+                                  **OPTION_FIELDS)
+        t0 = time.perf_counter()
+        model = build_segmentor(cfg, device="cuda", seed=0,
+                                module_overrides=overrides)
+        g = cfg.grid
+        batch = synthetic_batch(1, cfg.input_size, (g.H, g.W, g.D), seed=0,
+                                device="cuda")
+        if cfg.version == 1:
+            batch["anchor_points"] = torch.from_numpy(
+                anchor_points_for(cfg, 0))[None].cuda()
+        torch.cuda.synchronize()
+        log(f"# {cfg.name} setup: {time.perf_counter() - t0:.1f} s; "
+            f"overrides {overrides}, fields {OPTION_FIELDS}")
+        v1 = cfg.version == 1
+        p = cfg.num_anchor + 1 if v1 else cfg.total_anchors
+        kind = "additive" if v1 else "prob"
+        fwd = frame_phase(cfg, model, batch, mods, fwd_counts, 1)
+        with torch.inference_mode():
+            rows.append(check_kernel(("splat", kind, p), captured(
+                fwd["calls"], ("splat", kind, p)), fwd["launches"], mods,
+                tag=cfg.name, hold_ties=True))
+        del fwd["calls"], fwd["launches"]
+        loss_fn = options_loss(cfg)
+        train = train_phase(cfg, model, batch, mods, train_counts, 1,
+                            loss_fn=loss_fn)
+        terms = {t.name for t in loss_fn.terms}
+        if not terms <= set(train["train_loss"]):
+            raise RuntimeError(f"{cfg.name}: loss terms {terms} missing in "
+                               f"{train['train_loss']}")
+        with torch.no_grad():
+            rows.append(check_backward(("splat_bwd", kind, p), captured(
+                train["calls"], ("splat_bwd", kind, p)), train["launches"],
+                mods, tag=cfg.name))
+        del train["calls"], train["launches"]
+        log(f"# {cfg.name}: frame {fwd['frame_ms']:.3f} ms, peak "
+            f"{fwd['frame_peak_gib']:.2f} GiB; train step "
+            f"{train['step_ms']:.3f} ms, peak {train['train_peak_gib']:.2f} "
+            f"GiB; last step {train['train_loss']}")
+        summary.update({f"{cfg.name}_{k}": v for k, v in fwd.items()})
+        summary.update({f"{cfg.name}_{k}": v for k, v in train.items()})
+        del model, batch, fwd, train
+        torch.cuda.empty_cache()
+    for name, overrides in (("gs25600_solid_tiny", V1_OPTIONS),
+                            ("prob_gs6400_tiny", PROB_OPTIONS)):
+        check_small(name, get_config, build_segmentor, synthetic_batch,
+                    overrides, **OPTION_FIELDS)
+    return summary
+
+
+def run_launched(args, timeout, what):
+    """``python -m torch.distributed.run`` with ``args`` in a session of its
+    own (the agent and its workers), killed whole if it outlives
+    ``timeout`` seconds. Returns its output; raises on a nonzero exit."""
+    import os
+    import signal
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1"] + args
+    log(f"# {what}: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{what} ran past {timeout} s")
+    log(f"# {what}: exit {proc.returncode} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed:\n{out[-6000:]}")
+    return out
+
+
+def ddp_phase(entry, root):
+    """Phase 15: the train and eval CLIs under ``torch.distributed.run`` in
+    a world of one (NCCL, DDP) on phase 13's files, seed and flags; the
+    steps' losses and the eval counts against phase 13's."""
+    import os
+    from gaussianformer_tpu_torch.utils.checkpoint import latest_checkpoint
+    work = os.path.join(root, "work_ddp")
+    flags = entry["_files"] + ["--config", "prob_gs6400", "--work-dir", work]
+    t0 = time.perf_counter()
+    run_launched(["-m", "gaussianformer_tpu_torch.train"] + flags + [
+        "--max-epochs", "1", "--batch-size", "1", "--print-freq", "1",
+        "--iter-resume"], 900, "train CLI under torch.distributed.run")
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(work, "train.log")) as f:
+        train_log = f.read()
+    if "DistributedDataParallel: rank 0 of 1, backend nccl" not in train_log:
+        raise RuntimeError("the train CLI did not log DDP over NCCL:\n"
+                           + train_log[-3000:])
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    plain = entry["_steps"]
+    if len(plain) != 2 or [r["iter"] for r in steps] != [1, 2]:
+        raise RuntimeError(f"DDP steps {steps} against {plain}")
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(steps, plain)]
+           for k in ("loss", "grad_norm")}
+    log(f"# DDP (world of one, NCCL) step losses "
+        f"{[r['loss'] for r in steps]} and grad norms "
+        f"{[r['grad_norm'] for r in steps]} against phase 13's "
+        f"{[r['loss'] for r in plain]} and "
+        f"{[r['grad_norm'] for r in plain]}: relative {rel} (required: the "
+        f"step-1 loss <= 1e-5, the step-1 grad norm <= 1e-4; step 2 is not "
+        f"held: two plain runs on one H100 differed there by 3.3e-3)")
+    if not (rel["loss"][0] <= 1e-5 and rel["grad_norm"][0] <= 1e-4
+            and all(math.isfinite(r[k]) for r in steps
+                    for k in ("loss", "grad_norm"))):
+        raise RuntimeError(f"DDP step 1 differs from the plain run: {rel}")
+    latest = latest_checkpoint(work)
+    if latest is None or os.path.basename(latest) != "ckpt_000000002.pt":
+        raise RuntimeError(f"DDP run's latest checkpoint {latest}")
+    moved = held_within_two_steps(latest, entry["_latest"])
+
+    ev_work = os.path.join(root, "work_ddp_eval")
+    t0 = time.perf_counter()
+    run_launched(["-m", "gaussianformer_tpu_torch.eval"]
+                 + entry["_files"] + ["--config", "prob_gs6400",
+                                      "--work-dir", ev_work,
+                                      "--ckpt", entry["_latest"]],
+                 600, "eval CLI under torch.distributed.run")
+    eval_s = time.perf_counter() - t0
+    with open(os.path.join(ev_work, "train.log")) as f:
+        found = re.findall(r"val counts .*?: (\[\[.*\]\])", f.read())
+    if not found:
+        raise RuntimeError("the eval CLI logged no counts")
+    counts = json.loads(found[-1])
+    same = counts == entry["_eval_counts"]
+    log(f"# DDP eval CLI: counts equal phase 13's: {same}; train CLI "
+        f"{train_s:.1f} s, eval CLI {eval_s:.1f} s (each with its process "
+        f"start); one card on this host, so a world of two runs only on "
+        f"the CPU (gloo, tests/test_torch_port_ddp.py)")
+    if not same:
+        raise RuntimeError(f"DDP eval counts {counts} != phase 13's "
+                           f"{entry['_eval_counts']}")
+    return dict(ddp_train_cli_s=train_s, ddp_eval_cli_s=eval_s,
+                ddp_losses=[r["loss"] for r in steps],
+                ddp_grad_norms=[r["grad_norm"] for r in steps],
+                ddp_rel=rel, ddp_ckpt=os.path.basename(latest),
+                ddp_params_worst_share_of_bound=moved)
+
+
+def held_within_two_steps(path, plain_path):
+    """The DDP run's parameters after its two steps against the plain
+    run's: every element within twice the two AdamW steps' largest move
+    from the same start, (lr_0 + lr_1)(1 + wd |p|) at the schedule's first
+    two lrs (each group's; bias-corrected Adam moves at most 1.0013 lr at
+    its second step, hence 2.02), plus fp32 rounding. Returns the largest
+    share of that bound used."""
+    import torch
+    from gaussianformer_tpu_torch.configs import get_config
+    from gaussianformer_tpu_torch.train.optim import (BACKBONE,
+                                                      cosine_warmup_schedule)
+    o = get_config("prob_gs6400").optim
+    # the CLI's 2 steps of one epoch
+    sched = cosine_warmup_schedule(o.lr, 2, o.warmup_iters, o.min_lr_ratio)
+    got = torch.load(path, map_location="cpu", weights_only=True)["model"]
+    ref = torch.load(plain_path, map_location="cpu",
+                     weights_only=True)["model"]
+    worst = 0.0
+    for name, r in ref.items():
+        if not r.is_floating_point():
+            continue
+        mult = o.backbone_lr_mult if name.startswith(BACKBONE) else 1.0
+        bound = (2.02 * (sched(0) + sched(1)) * mult
+                 * (1.0 + o.weight_decay * r.abs()) + 2.0 ** -22 * r.abs())
+        share = ((got[name] - r).abs() / bound).max().item()
+        worst = max(worst, share)
+        if not share <= 1.0:
+            raise RuntimeError(f"DDP parameter {name} moved {share:.3f} "
+                               f"times two steps' bound from the plain run's")
+    log(f"# DDP checkpoint against phase 13's: every element within two "
+        f"AdamW steps' move (largest share of the bound {worst:.4f})")
+    return worst
 
 
 def check_per_axis(fwd_calls, train_calls, p, mods, rows):
@@ -815,11 +1116,13 @@ def check_per_axis(fwd_calls, train_calls, p, mods, rows):
     rows += [row, row7]
 
 
-def check_kernel(key, call, launches, mods, tag=""):
+def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
     """Kernel vs plain on one captured call; returns its kernels-line row
     (``report`` False for the stage-4 DCN shape, printed but folded into
     the one K1 row, which is measured at the stage-3 shape). ``tag``: the
-    config whose shapes these are, where not the flagship's."""
+    config whose shapes these are, where not the flagship's.
+    ``hold_ties``: K4's combine-mode labels must also equal the plain ones
+    but for counted near-ties."""
     import torch
     dcn, fps, deformable, splat = (mods.dcn, mods.fps, mods.deformable,
                                    mods.splat)
@@ -969,6 +1272,9 @@ def check_kernel(key, call, launches, mods, tag=""):
                 f"(required >= 0.999: near-ties may flip)")
             if agree < 0.999:
                 raise RuntimeError(f"splat labels agree on only {agree}")
+            if hold_ties:
+                held_combine_labels(f"splat_prob_labels{suffix}", got, ref,
+                                    splat)
         ms = cuda_ms(lambda: fn(*args, **kw), 10)
         pairs = splat_pairs(points, box, grid)
         c = sem_aug.shape[1]
@@ -1138,6 +1444,22 @@ def held_threshold_labels(name, got, ref, thresh, empty_label, splat):
                            f"version")
 
 
+def held_combine_labels(name, got, ref, splat):
+    """Hold the prob splat's combine-mode labels to the plain version's:
+    equal wherever the plain combined scores' top two differ by more than
+    1e-6 (fp32 sums in another order may flip the others), which are
+    counted."""
+    logits, bins, _ = splat.postprocess_prob(ref[0], ref[1])
+    top = splat.combine_geosem(logits, bins).topk(2, dim=-1).values
+    near = top[:, 0] - top[:, 1] <= 1e-6
+    wrong = int((got[2][~near] != ref[2][~near]).sum().item())
+    log(f"# {name} labels: {int(near.sum().item())} of {near.numel()} voxels "
+        f"excluded as near-ties, {wrong} of the others differ")
+    if wrong:
+        raise RuntimeError(f"{name}: {wrong} labels differ from the plain "
+                           f"version")
+
+
 def splat_pairs(points, box, grid) -> int:
     """(point, Gaussian) pairs inside the AABBs for this run's data: the
     clipped box volume of each Gaussian (the points are the full grid)."""
@@ -1152,20 +1474,26 @@ def splat_pairs(points, box, grid) -> int:
 
 
 def tiny_setup(name, dev, get_config, build_segmentor, synthetic_batch,
-               **changes):
+               overrides=None, **changes):
     """A tiny config's model and batch on ``dev`` (fp32 towers without
     DCN, since the DCN kernel takes bf16), from seed 1 on either device,
-    and the lifter draws to pass. With the image lifter (version 2) no
-    random draw takes effect on either device: top-1 depths of 1-2 m and
-    the no-occupancy bin disabled keep every candidate valid."""
+    and the lifter draws to pass; ``overrides``: the model's
+    ``module_overrides`` (with the v1 lifter's ``pts_init``, the batch
+    gets anchor points). With the image lifter (version 2) no random draw
+    takes effect on either device: top-1 depths of 1-2 m and the
+    no-occupancy bin disabled keep every candidate valid."""
     import dataclasses
     import torch
     cfg = dataclasses.replace(get_config(name), stage_with_dcn=(False,) * 4,
                               **changes)
     g = cfg.grid
-    model = build_segmentor(cfg, device=dev, seed=1)
+    model = build_segmentor(cfg, device=dev, seed=1,
+                            module_overrides=overrides)
     batch = synthetic_batch(1, cfg.input_size, (g.H, g.W, g.D), seed=1,
                             device=dev)
+    if getattr(model.lifter, "pts_init", False):
+        batch["anchor_points"] = torch.from_numpy(
+            anchor_points_for(cfg, 1))[None].to(dev)
     draws = None
     if cfg.version == 2:
         model.lifter.deterministic_sampling = True
@@ -1186,18 +1514,22 @@ def tiny_setup(name, dev, get_config, build_segmentor, synthetic_batch,
     return cfg, model, batch, draws
 
 
-def check_small(name, get_config, build_segmentor, synthetic_batch):
-    """The tiny config end to end: the GPU run with the FPS (where the
+def check_small(name, get_config, build_segmentor, synthetic_batch,
+                overrides=None, **changes):
+    """The tiny config end to end (with ``overrides`` and ``changes`` as
+    :func:`tiny_setup` takes them): the GPU run with the FPS (where the
     config has it), deformable and splat kernels against the CPU run of
     the same weights with the plain versions."""
     import torch
     outs = []
     for dev in ("cpu", "cuda"):
         cfg, model, batch, draws = tiny_setup(
-            name, dev, get_config, build_segmentor, synthetic_batch)
+            name, dev, get_config, build_segmentor, synthetic_batch,
+            overrides, **changes)
         with torch.inference_mode():
             out = model(batch["imgs"], batch["projection_mat"],
                         batch["image_wh"], batch["occ_xyz"],
+                        anchor_points=batch.get("anchor_points"),
                         lifter_draws=draws)
         outs.append({k: (v[-1] if isinstance(v, list) else v)
                      for k, v in out.items()
@@ -1221,11 +1553,12 @@ def check_small(name, get_config, build_segmentor, synthetic_batch):
         raise RuntimeError(f"{name}: GPU and CPU runs disagree")
 
 
-def train_phase(cfg, model, batch, mods, expected, steps):
+def train_phase(cfg, model, batch, mods, expected, steps, loss_fn=None):
     """The full-width train step on ``model``: warm-up (capturing the
     backward kernels' inputs), a counted step, ``steps`` timed steps and a
-    profiled step. Raises on wrong launch counts, non-finite metrics, a
-    trained parameter that did not move or a frozen one that changed."""
+    profiled step, with the config's loss stack or ``loss_fn``. Raises on
+    wrong launch counts, non-finite metrics, a trained parameter that did
+    not move or a frozen one that changed."""
     import torch
     from gaussianformer_tpu_torch.train.optim import (build_optimizer,
                                                       frozen_prefixes,
@@ -1235,7 +1568,7 @@ def train_phase(cfg, model, batch, mods, expected, steps):
     # the schedule's length shapes only its cosine part, which the few
     # warm-up steps here never reach
     opt, schedule = build_optimizer(model, cfg, 10000)
-    loss_fn = build_loss(cfg)
+    loss_fn = loss_fn or build_loss(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     labels = param_labels(model, frozen_prefixes(cfg))
     start = {n: p.detach().clone() for n, p in model.named_parameters()}

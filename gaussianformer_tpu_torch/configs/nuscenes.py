@@ -90,6 +90,9 @@ class GaussianFormerConfig:
     spconv_grid_size: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     spconv_use_out_proj: bool = True
     spconv_use_multi_layer: bool = True
+    # a LayerNorm over the FFN's input (its in_channels) before the FFN;
+    # the normalised input is what the identity adds (no shipped config)
+    ffn_pre_norm: bool = False
     ffn_add_identity: bool = False
     ffn_in_channels: Optional[int] = None
     deformable_residual_mode: str = "none"

@@ -4,7 +4,10 @@
         --work-dir out/prob64 [--ckpt PATH | the work dir's latest] \
         [--synthetic] [--device cpu]
 
-Prints ``mIoU: ..%  occupancy IoU: ..%``."""
+Prints ``mIoU: ..%  occupancy IoU: ..%``. Under torchrun each process
+evaluates its shard and rank 0 reports the counts summed over the ranks
+(``torchrun --standalone --nproc_per_node=N -m
+gaussianformer_tpu_torch.eval ...``)."""
 from __future__ import annotations
 
 import argparse
@@ -35,12 +38,14 @@ def main(argv=None):
     from .configs import get_config
     from .data import DataLoader, ShardedSampler
     from .device import resolve_device
+    from .parallel import init_distributed
     from .train.runner import Trainer, build_dataset, setup_logging
     from .utils.checkpoint import latest_checkpoint, load_checkpoint
 
     args = parse_args(argv)
-    setup_logging(args.work_dir)
     device = resolve_device(args.device)
+    rank, world = init_distributed(device)
+    setup_logging(args.work_dir if rank == 0 else None)
     cfg = get_config(args.config)
     val_ds = build_dataset(
         cfg, "val", synthetic=args.synthetic,
@@ -48,7 +53,9 @@ def main(argv=None):
         anno_root=args.anno_root, occ_path=args.occ_path)
     n = min(args.num_samples or len(val_ds), len(val_ds))
     val_loader = DataLoader(val_ds, cfg.data.batch_size,
-                            sampler=ShardedSampler(n, shuffle=False),
+                            sampler=ShardedSampler(n, shard_id=rank,
+                                                   num_shards=world,
+                                                   shuffle=False),
                             num_workers=args.num_workers,
                             pin_memory=device.type == "cuda")
     try:
@@ -58,7 +65,7 @@ def main(argv=None):
         ckpt = args.ckpt or latest_checkpoint(args.work_dir)
         if ckpt:
             trainer.model.load_state_dict(
-                load_checkpoint(ckpt, map_location=device)["model"])
+                load_checkpoint(ckpt, map_location=trainer.device)["model"])
             logger.info("evaluating %s", ckpt)
         else:
             logger.warning("no checkpoint: evaluating the seeded random "
@@ -66,9 +73,12 @@ def main(argv=None):
         miou, occ_iou = trainer.evaluate()
     finally:
         val_loader.close()
-    print(f"mIoU: {miou:.2f}%  occupancy IoU: {occ_iou:.2f}%")
+    if rank == 0:
+        print(f"mIoU: {miou:.2f}%  occupancy IoU: {occ_iou:.2f}%")
     return trainer
 
 
 if __name__ == "__main__":
+    from .parallel import shutdown_distributed
     main()
+    shutdown_distributed()

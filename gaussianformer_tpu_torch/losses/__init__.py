@@ -1,1 +1,2 @@
-"""Losses of the prob configs (gaussianformer_tpu/losses/)."""
+"""Losses (gaussianformer_tpu/losses/): occupancy (CE, Lovász, the focal,
+dice and scal options), the BCE family and their composition."""

@@ -82,10 +82,11 @@ class MeanIoU:
         self.add_counts(self.counts_for(outputs, targets, mask))
 
     def result(self, distributed: bool = False):
-        """(mIoU %, occupancy IoU %, per-class IoUs). Counts summed over
-        processes come with the DDP slice: ``distributed=True`` raises."""
+        """(mIoU %, occupancy IoU %, per-class IoUs); ``distributed`` sums
+        the int64 counts over the process group first (reference
+        dist.all_reduce, metric_util.py:69-73)."""
+        counts = self.counts
         if distributed:
-            raise NotImplementedError(
-                "summing the counts over processes comes with the port's "
-                "DDP slice; this port runs one process")
-        return compute_iou(self.counts)
+            from ..parallel.distributed import all_reduce_sum_host
+            counts = all_reduce_sum_host(counts)
+        return compute_iou(counts)

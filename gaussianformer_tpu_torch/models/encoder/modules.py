@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from ...kernels.deformable import deformable_aggregation
-from ...ops.coords import cartesian, reverse_cartesian
+from ...ops.coords import cartesian, reverse_cartesian, world_xyz
 from ...ops.rotation import quaternion_to_rotation_matrix
 from ...ops.safe_ops import safe_sigmoid
 from ...ops.sparse_conv import (neighbor_anchors, submanifold_conv3d,
@@ -63,16 +63,19 @@ class AsymmetricFFN(nn.Module):
     ReLU and after the second Linear in training. With ``add_identity``
     the input is added to the result, through ``identity_fc`` when its
     width ``in_channels`` is not ``embed_dims`` (the v1 models, whose
-    deformable output is concatenated to the features)."""
+    deformable output is concatenated to the features). With ``pre_norm``
+    the input first goes through a LayerNorm over its ``in_channels``, and
+    the normalised input is what is added."""
 
     def __init__(self, embed_dims: int = 128,
                  feedforward_channels: int = 512, ffn_drop: float = 0.0,
                  add_identity: bool = False,
-                 in_channels: Optional[int] = None):
+                 in_channels: Optional[int] = None, pre_norm: bool = False):
         super().__init__()
         self.ffn_drop = ffn_drop
         self.add_identity = add_identity
         in_channels = in_channels or embed_dims
+        self.pre_norm = nn.LayerNorm(in_channels) if pre_norm else None
         self.layers = nn.Sequential(
             nn.Sequential(nn.Linear(in_channels, feedforward_channels),
                           nn.ReLU()),
@@ -82,6 +85,8 @@ class AsymmetricFFN(nn.Module):
                             else nn.Identity())
 
     def forward(self, x, training: bool = False, generator=None):
+        if self.pre_norm is not None:
+            x = self.pre_norm(x)
         p = self.ffn_drop if training else 0.0
         h = dropout(self.layers[0](x), p, generator)
         out = dropout(self.layers[1](h), p, generator)
@@ -91,14 +96,21 @@ class AsymmetricFFN(nn.Module):
 
 
 class SparseGaussian3DKeyPointsGenerator(nn.Module):
-    """Key points = mean + R^T (fixed and learnable offsets x scale)."""
+    """Key points = mean + R^T (fixed and learnable offsets x scale). The
+    mean is the anchor's cartesian xyz or, with ``xyz_coordinate``
+    "polar", its (r, theta, phi) through ``spherical_to_cartesian`` with
+    ``phi_activation``. DeformableFeatureAggregation never sets these, as
+    in the JAX package: its key points read the anchor as cartesian."""
 
     def __init__(self, embed_dims: int = 128, num_learnable_pts: int = 6,
                  learnable_fixed_scale: float = 6.0,
                  fix_scale=((0.0, 0.0, 0.0),),
                  pc_range=(-50.0, -50.0, -5.0, 50.0, 50.0, 3.0),
-                 scale_range=(0.01, 3.2)):
+                 scale_range=(0.01, 3.2), xyz_coordinate: str = "cartesian",
+                 phi_activation: str = "sigmoid"):
         super().__init__()
+        self.xyz_coordinate = xyz_coordinate
+        self.phi_activation = phi_activation
         self.num_learnable_pts = num_learnable_pts
         self.learnable_fixed_scale = learnable_fixed_scale
         self.register_buffer("fix_scale",
@@ -124,8 +136,9 @@ class SparseGaussian3DKeyPointsGenerator(nn.Module):
         rot = quaternion_to_rotation_matrix(anchor[..., 6:10])
         # R^T applied to each key point: kp_i = sum_j R[j, i] v_j
         key_points = torch.einsum("bpji,bpkj->bpki", rot, key_points)
-        return key_points + cartesian(anchor[..., :3],
-                                      self.pc_range)[:, :, None]
+        xyz = world_xyz(anchor, self.pc_range, self.xyz_coordinate,
+                        self.phi_activation)
+        return key_points + xyz[:, :, None]
 
 
 def project_points(key_points, projection_mat, image_wh):
@@ -313,15 +326,22 @@ class SparseGaussian3DRefinementModule(nn.Module):
     (2 sigmoid - 1) * 4 unit / range in the anchor's logit space; the
     components listed in ``refine_manual`` are added to the old anchor's,
     the others replace them. The anchor returned is that output with its
-    quaternion normalised, not a re-encoding of the decoded Gaussian."""
+    quaternion normalised, not a re-encoding of the decoded Gaussian. With
+    ``xyz_coordinate`` "polar" the Gaussian's mean is that anchor's
+    (r, theta, phi) through ``spherical_to_cartesian`` with
+    ``phi_activation``."""
 
     def __init__(self, embed_dims: int = 128,
                  pc_range=(-50.0, -50.0, -5.0, 50.0, 50.0, 3.0),
                  scale_range=(0.08, 0.64), unit_xyz=(4.0, 4.0, 1.0),
                  semantic_dim: int = 17, include_opa: bool = True,
                  semantics_activation: str = "identity",
-                 restrict_xyz: bool = False, refine_manual=None):
+                 restrict_xyz: bool = False, refine_manual=None,
+                 xyz_coordinate: str = "cartesian",
+                 phi_activation: str = "sigmoid"):
         super().__init__()
+        self.xyz_coordinate = xyz_coordinate
+        self.phi_activation = phi_activation
         self.pc_range = tuple(pc_range)
         self.scale_range = tuple(scale_range)
         self.semantic_dim = semantic_dim
@@ -355,7 +375,8 @@ class SparseGaussian3DRefinementModule(nn.Module):
         sem_start = 10 + int(self.include_opa)
         lo, hi = self.scale_range
         gaussian = GaussianPrediction(
-            means=cartesian(xyz_a, self.pc_range),
+            means=world_xyz(output, self.pc_range, self.xyz_coordinate,
+                            self.phi_activation),
             scales=lo + (hi - lo) * safe_sigmoid(scale_a),
             rotations=rot,
             opacities=safe_sigmoid(output[..., 10:sem_start]),

@@ -16,7 +16,11 @@ layer.
   empty class; a prediction without opacities is splatted with ones.
 
 ``per_axis_radii`` (the reference's localagg_prob_fast) sizes each box by
-the Gaussian's scale on each axis rather than by its largest."""
+the Gaussian's scale on each axis rather than by its largest. With
+``"kitti"`` in ``dataset_type`` the learnt Gaussians' zero empty column
+goes first rather than last, in both variants; the splat's uniform
+fallback and ``combine_geosem`` still read the last column as empty, as
+in the JAX package."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -60,9 +64,10 @@ class GaussianHead(nn.Module):
                  empty_scale=(100.0, 100.0, 8.0),
                  use_localaggprob: bool = True,
                  combine_geosem: bool = True, sigmoid_thresh: float = 0.5,
-                 per_axis_radii: bool = False):
+                 per_axis_radii: bool = False, dataset_type: str = "nusc"):
         super().__init__()
         self.grid = grid
+        self.empty_first = "kitti" in dataset_type
         self.apply_loss_type = apply_loss_type
         self.with_empty = with_empty
         self.use_localaggprob = use_localaggprob
@@ -93,11 +98,16 @@ class GaussianHead(nn.Module):
         opa = gaussians.opacities
         if opa.shape[-1] == 0:
             opa = torch.ones_like(sem[..., :1])
+
+        def with_empty_column(t):
+            parts = [t, torch.zeros_like(t[..., :1])]
+            return torch.cat(parts[::-1] if self.empty_first else parts, -1)
+
         if self.with_empty:
             b = means.shape[0]
             # the learnt Gaussians get a zero on the empty channel; the
             # empty Gaussian carries empty_scalar there and zeros elsewhere
-            sem = torch.cat([sem, torch.zeros_like(sem[..., :1])], dim=-1)
+            sem = with_empty_column(sem)
             e_sem = self.empty_onehot * self.empty_scalar
 
             def one(t):
@@ -108,17 +118,17 @@ class GaussianHead(nn.Module):
             sem = torch.cat([sem, one(e_sem)], dim=1)
             opa = torch.cat([opa, torch.ones_like(opa[:, :1])], dim=1)
         elif self.use_localaggprob:
-            sem = torch.softmax(sem, dim=-1)
-            sem = torch.cat([sem, torch.zeros_like(sem[..., :1])], dim=-1)
+            sem = with_empty_column(torch.softmax(sem, dim=-1))
         cov_inv6 = build_covariance_inverse6(scales, rotations)
         return means, opa[..., 0], sem, scales, cov_inv6
 
     def forward(self, representation, occ_xyz, occ_label=None,
                 occ_cam_mask=None, training: bool = False,
                 apply_loss_layers: Optional[Sequence[int]] = None):
-        """occ_xyz [B, X, Y, Z, 3] voxel centres; occ_label and
-        occ_cam_mask [B, X, Y, Z] come back flattened as the losses'
-        ``sampled_label`` and ``occ_mask``."""
+        """occ_xyz [B, X, Y, Z, 3] voxel centres, which come back
+        flattened as ``sampled_xyz`` (the distance-weighted focal loss reads
+        them); occ_label and occ_cam_mask [B, X, Y, Z] come back flattened
+        as the losses' ``sampled_label`` and ``occ_mask``."""
         b = occ_xyz.shape[0]
         points = occ_xyz.reshape(b, -1, 3)
         layers = loss_layers(self.apply_loss_type, len(representation),
@@ -144,6 +154,7 @@ class GaussianHead(nn.Module):
             "density": density,
             "final_occ": labels,
             "gaussian": representation[-1],
+            "sampled_xyz": points,
         }
         if occ_label is not None:
             out["sampled_label"] = occ_label.reshape(b, -1)

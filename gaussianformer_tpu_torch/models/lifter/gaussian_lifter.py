@@ -1,8 +1,11 @@
 """GaussianLifter (v1, gaussianformer_tpu/models/lifter/gaussian_lifter.py):
 a learnable bank of anchor Gaussians and their instance features, the same
 for every sample. Whether they train is the optimizer's partition
-(``train/optim.py``). Lidar-point initialisation (``pts_init``) is not
-ported."""
+(``train/optim.py``). With ``pts_init`` each sample's anchor xyz come from
+its lidar anchor points (``data/transforms.py::load_points`` /
+``load_pseudo_points``, normalised to [0, 1]^3) through the inverse
+sigmoid, and the rest of each anchor from the bank (reference
+gaussian_lifter.py:76-82)."""
 from __future__ import annotations
 
 import torch
@@ -33,10 +36,12 @@ def init_anchor(num_anchor: int, semantic_dim: int, include_opa: bool,
 
 class GaussianLifter(nn.Module):
     def __init__(self, num_anchor: int, embed_dims: int = 128,
-                 semantic_dim: int = 17, include_opa: bool = True):
+                 semantic_dim: int = 17, include_opa: bool = True,
+                 pts_init: bool = False):
         super().__init__()
         self.semantic_dim = semantic_dim
         self.include_opa = include_opa
+        self.pts_init = pts_init
         self.anchor = nn.Parameter(torch.zeros(
             num_anchor, 10 + int(include_opa) + semantic_dim))
         self.instance_feature = nn.Parameter(torch.zeros(num_anchor,
@@ -50,10 +55,17 @@ class GaussianLifter(nn.Module):
                 generator))
             self.instance_feature.zero_()
 
-    def forward(self, batch_size: int):
+    def forward(self, batch_size: int, anchor_points=None):
+        """``anchor_points`` [B, num_anchor, 3]: required with
+        ``pts_init``, ignored without."""
+        rep = self.anchor[None].expand(batch_size, *self.anchor.shape)
+        if self.pts_init:
+            if anchor_points is None:
+                raise ValueError("pts_init needs anchor_points")
+            rep = torch.cat([safe_inverse_sigmoid(anchor_points),
+                             rep[..., 3:]], dim=-1)
         return {
-            "representation": self.anchor[None].expand(
-                batch_size, *self.anchor.shape),
+            "representation": rep,
             "rep_features": self.instance_feature[None].expand(
                 batch_size, *self.instance_feature.shape),
         }

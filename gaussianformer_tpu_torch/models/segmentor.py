@@ -10,6 +10,7 @@ autograd's mode: inference callers run under ``torch.inference_mode()``,
 which also selects the DCN kernel's fused epilogue."""
 from __future__ import annotations
 
+import inspect
 from typing import Optional, Sequence
 
 import torch
@@ -19,6 +20,10 @@ from ..configs.nuscenes import GaussianFormerConfig
 from ..device import resolve_device
 from .backbone.resnet import ResNet
 from .encoder.gaussian_encoder import GaussianOccEncoder
+from .encoder.modules import (AsymmetricFFN, DeformableFeatureAggregation,
+                              SparseConv3DModule,
+                              SparseGaussian3DRefinementModule,
+                              SparseGaussian3DRefinementModuleV2)
 from .head.gaussian_head import GaussianHead
 from .lifter.gaussian_lifter import GaussianLifter
 from .lifter.gaussian_lifter_v2 import GaussianLifterV2
@@ -26,7 +31,16 @@ from .neck.fpn import FPN
 
 
 class BEVSegmentor(nn.Module):
-    def __init__(self, cfg: GaussianFormerConfig):
+    """Built from the config. ``module_overrides`` carries the edits the
+    JAX package makes to the dicts of ``cfg.segmentor_cfg()`` to reach the
+    options no config field sets, under the same names: ``lifter_cfg``
+    (the v1 lifter's ``pts_init``), ``encoder_cfg`` with its
+    ``refine_cfg`` / ``ffn_cfg`` / ``deformable_cfg`` / ``spconv_cfg``
+    (the v1 refinement's ``xyz_coordinate`` and ``phi_activation``) and
+    ``head_cfg`` (``dataset_type``); each key is a keyword of the module
+    it reaches, and an unknown one raises."""
+
+    def __init__(self, cfg: GaussianFormerConfig, module_overrides=None):
         super().__init__()
         dt = getattr(torch, cfg.compute_dtype)
         self.img_backbone = ResNet(depth=cfg.depth,
@@ -36,11 +50,13 @@ class BEVSegmentor(nn.Module):
         self.img_neck = FPN(self.img_backbone.out_channels, cfg.embed_dims)
         self.lifter_version = cfg.version
         if cfg.version == 1:
-            self.lifter = GaussianLifter(
+            lifter_cls = GaussianLifter
+            lifter_cfg = dict(
                 num_anchor=cfg.num_anchor, embed_dims=cfg.embed_dims,
                 semantic_dim=cfg.semantic_dim, include_opa=cfg.include_opa)
         else:
-            self.lifter = GaussianLifterV2(
+            lifter_cls = GaussianLifterV2
+            lifter_cfg = dict(
                 num_anchor=cfg.num_anchor, embed_dims=cfg.embed_dims,
                 semantic_dim=cfg.semantic_dim,
                 num_samples=cfg.num_depth_samples, pc_range=cfg.pc_range,
@@ -65,13 +81,13 @@ class BEVSegmentor(nn.Module):
                 semantics_activation=cfg.semantics_activation,
                 restrict_xyz=cfg.restrict_xyz,
                 refine_manual=cfg.refine_manual)
-        self.encoder = GaussianOccEncoder(
-            cfg.operation_order, cfg.embed_dims, cfg.semantic_dim,
+        encoder_cfg = dict(
             ffn_cfg=dict(embed_dims=cfg.embed_dims,
                          feedforward_channels=cfg.embed_dims * 4,
                          ffn_drop=cfg.ffn_drop,
                          add_identity=cfg.ffn_add_identity,
-                         in_channels=cfg.ffn_in_channels),
+                         in_channels=cfg.ffn_in_channels,
+                         pre_norm=cfg.ffn_pre_norm),
             deformable_cfg=dict(
                 embed_dims=cfg.embed_dims, num_cams=cfg.num_cams,
                 attn_drop=cfg.attn_drop,
@@ -82,18 +98,34 @@ class BEVSegmentor(nn.Module):
                             pc_range=cfg.pc_range,
                             grid_size=cfg.spconv_grid_size, dtype=dt,
                             use_out_proj=cfg.spconv_use_out_proj,
-                            use_multi_layer=cfg.spconv_use_multi_layer),
-            include_opa=cfg.include_opa, refine_version=cfg.version)
-        self.head = GaussianHead(
-            cfg.grid, cfg.apply_loss_type, num_classes=cfg.num_classes,
-            empty_label=cfg.empty_label, with_empty=cfg.with_empty,
-            empty_mean=cfg.empty_mean, empty_scale=cfg.empty_scale,
+                            use_multi_layer=cfg.spconv_use_multi_layer))
+        head_cfg = dict(
+            grid=cfg.grid, apply_loss_type=cfg.apply_loss_type,
+            num_classes=cfg.num_classes, empty_label=cfg.empty_label,
+            with_empty=cfg.with_empty, empty_mean=cfg.empty_mean,
+            empty_scale=cfg.empty_scale,
             use_localaggprob=cfg.use_localaggprob,
             combine_geosem=cfg.combine_geosem,
             per_axis_radii=cfg.use_localaggprob_fast)
+        refine_cls = (SparseGaussian3DRefinementModuleV2 if cfg.version == 2
+                      else SparseGaussian3DRefinementModule)
+        _apply_overrides(module_overrides or {}, {
+            "lifter_cfg": (lifter_cfg, lifter_cls),
+            "encoder_cfg": (encoder_cfg, {
+                "ffn_cfg": AsymmetricFFN,
+                "deformable_cfg": DeformableFeatureAggregation,
+                "refine_cfg": refine_cls,
+                "spconv_cfg": SparseConv3DModule}),
+            "head_cfg": (head_cfg, GaussianHead)})
+        self.lifter = lifter_cls(**lifter_cfg)
+        self.encoder = GaussianOccEncoder(
+            cfg.operation_order, cfg.embed_dims, cfg.semantic_dim,
+            include_opa=cfg.include_opa, refine_version=cfg.version,
+            **encoder_cfg)
+        self.head = GaussianHead(**head_cfg)
 
     def forward(self, imgs, projection_mat, image_wh, occ_xyz=None,
-                occ_label=None, occ_cam_mask=None, *,
+                occ_label=None, occ_cam_mask=None, anchor_points=None, *,
                 training: bool = False,
                 generator: Optional[torch.Generator] = None,
                 rep_only: bool = False, occ_only: bool = False,
@@ -103,8 +135,9 @@ class BEVSegmentor(nn.Module):
         [B, N, 4, 4] lidar -> image; image_wh [B, N, 2]; occ_xyz
         [B, X, Y, Z, 3] voxel centres (needed unless ``rep_only``);
         occ_label and occ_cam_mask [B, X, Y, Z], the ground truth of the
-        losses. ``generator`` drives the lifter's depth sampling and
-        padding and, with ``training``, the dropout draws."""
+        losses; anchor_points [B, num_anchor, 3] in [0, 1]^3, the v1
+        lifter's with ``pts_init``. ``generator`` drives the lifter's depth
+        sampling and padding and, with ``training``, the dropout draws."""
         b, n = imgs.shape[:2]
         flat = imgs.reshape((b * n,) + imgs.shape[2:]).permute(0, 3, 1, 2)
         feats = self.img_neck(self.img_backbone(flat))
@@ -112,7 +145,7 @@ class BEVSegmentor(nn.Module):
             b, n, f.shape[2], f.shape[3], f.shape[1]).contiguous()
             for f in feats]
         if self.lifter_version == 1:
-            lifter_out = self.lifter(b)
+            lifter_out = self.lifter(b, anchor_points)
         else:
             lifter_out = self.lifter(imgs, projection_mat, image_wh,
                                      occ_label, occ_cam_mask,
@@ -130,6 +163,27 @@ class BEVSegmentor(nn.Module):
         head_out["pixel_logits"] = lifter_out.get("pixel_logits")
         head_out["pixel_gt"] = lifter_out.get("pixel_gt")
         return head_out
+
+
+def _apply_overrides(overrides, targets):
+    """Update the module keyword dicts of ``targets`` (name -> (dict, the
+    module class, or a dict of such targets one level down)) from the
+    nested ``overrides``; a name or keyword that is not there raises."""
+    for name, value in overrides.items():
+        if name not in targets:
+            raise KeyError(f"unknown module override {name!r}; known: "
+                           f"{sorted(targets)}")
+        kwargs, cls = targets[name]
+        if isinstance(cls, dict):
+            _apply_overrides(value, {k: (kwargs[k], c)
+                                     for k, c in cls.items()})
+            continue
+        known = inspect.signature(cls.__init__).parameters
+        for key in value:
+            if key not in known or key == "self":
+                raise KeyError(f"{name}: {cls.__name__} has no keyword "
+                               f"{key!r}")
+        kwargs.update(value)
 
 
 def init_random_(model: nn.Module, generator: torch.Generator):
@@ -168,11 +222,13 @@ def init_random_(model: nn.Module, generator: torch.Generator):
 
 
 def build_segmentor(cfg: GaussianFormerConfig, device="cuda",
-                    seed: Optional[int] = 0) -> BEVSegmentor:
+                    seed: Optional[int] = 0,
+                    module_overrides=None) -> BEVSegmentor:
     """Build the segmentor on ``device`` (CUDA unless the caller asks for
-    the CPU), with seeded random weights unless ``seed`` is None."""
+    the CPU), with seeded random weights unless ``seed`` is None;
+    ``module_overrides`` as :class:`BEVSegmentor` takes them."""
     dev = resolve_device(device)
-    model = BEVSegmentor(cfg)
+    model = BEVSegmentor(cfg, module_overrides)
     if seed is not None:
         with torch.no_grad():
             init_random_(model, torch.Generator().manual_seed(seed))

@@ -7,7 +7,13 @@
 ``--synthetic`` trains on random data (a smoke test of the pipeline);
 ``--device cpu`` runs the plain PyTorch versions on the CPU (with a tiny
 config such as ``prob_gs6400_tiny``). The pretrains load first, then the
-newest checkpoint of the work dir, if any, and training resumes from it."""
+newest checkpoint of the work dir, if any, and training resumes from it.
+
+Under torchrun each process trains on its shard, in DDP (NCCL on the
+cards, gloo with ``--device cpu``; ``parallel/distributed.py``):
+
+    torchrun --standalone --nproc_per_node=N \
+        -m gaussianformer_tpu_torch.train --config prob_gs6400 ..."""
 from __future__ import annotations
 
 import argparse
@@ -49,11 +55,13 @@ def main(argv=None):
     from ..configs import get_config
     from ..data import DataLoader, ShardedSampler
     from ..device import resolve_device
+    from ..parallel import init_distributed
     from .runner import Trainer, build_dataset, setup_logging
 
     args = parse_args(argv)
-    setup_logging(args.work_dir)
     device = resolve_device(args.device)
+    rank, world = init_distributed(device)
+    setup_logging(args.work_dir if rank == 0 else None)
     cfg = get_config(args.config)
     if args.max_epochs is not None:
         cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
@@ -66,10 +74,12 @@ def main(argv=None):
     val_ds = build_dataset(cfg, "val", num_samples=2, **files)
     loader = dict(num_workers=args.num_workers,
                   pin_memory=device.type == "cuda")
+    # each process its shard (reference CustomDistributedSampler)
+    shard = dict(shard_id=rank, num_shards=world)
     train_loader = DataLoader(train_ds, batch_size, sampler=ShardedSampler(
-        len(train_ds), shuffle=True, seed=args.seed), **loader)
+        len(train_ds), shuffle=True, seed=args.seed, **shard), **loader)
     val_loader = DataLoader(val_ds, batch_size, sampler=ShardedSampler(
-        len(val_ds), shuffle=False), **loader)
+        len(val_ds), shuffle=False, **shard), **loader)
     try:
         trainer = Trainer(cfg, train_loader, val_loader, args.work_dir,
                           seed=args.seed, print_freq=args.print_freq,
@@ -87,4 +97,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from ..parallel import shutdown_distributed
     main()
+    shutdown_distributed()

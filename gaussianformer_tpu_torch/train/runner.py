@@ -9,10 +9,18 @@ model and its optimizer: a checkpoint holds the model's ``state_dict``
 (BN statistics included), the optimizer's, the gradient accumulation's
 where there is one, and the epoch and iteration counters.
 
-One process: multi-process runs come with the DDP slice, and the runner
-refuses ``WORLD_SIZE`` > 1 rather than run one process of many."""
+Several processes (torchrun, ``parallel/distributed.py``): each trains
+on its shard of the samples, on ``cuda:LOCAL_RANK``, with the model in
+torch's DistributedDataParallel, which averages the ranks' gradients of
+their own losses (the upstream reference's DDP; the JAX package's sharded
+step differentiates one loss over the global batch instead); with
+gradient accumulation the micro-steps run under ``no_sync`` and the
+accumulated mean is averaged once. The clipping reads the averaged
+gradients. Only rank 0 logs, writes ``metrics.jsonl`` and checkpoints;
+every rank resumes; the eval counts are summed over the ranks."""
 from __future__ import annotations
 
+import inspect
 import json
 import logging
 import os
@@ -25,8 +33,10 @@ import torch
 from ..configs import GaussianFormerConfig
 from ..data import NuScenesDataset, SyntheticOccDataset
 from ..device import resolve_device
-from ..metrics import MeanIoU
+from ..metrics import MeanIoU, compute_iou
 from ..models.segmentor import build_segmentor
+from ..parallel import (all_reduce_sum_host, barrier, init_distributed,
+                        is_main_process, local_rank)
 from ..utils.checkpoint import (latest_checkpoint, load_checkpoint,
                                 save_checkpoint)
 from .optim import GradientAccumulation, build_optimizer
@@ -84,10 +94,6 @@ class Trainer:
                  work_dir: str, *, seed: int = 0, print_freq: int = 50,
                  grad_accumulation: int = 1, iter_resume: bool = False,
                  device="cuda"):
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            raise RuntimeError(
-                "WORLD_SIZE > 1: multi-process runs come with the port's DDP "
-                "slice; run one process")
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -97,7 +103,13 @@ class Trainer:
         self.grad_accumulation = grad_accumulation
         self.iter_resume = iter_resume
         self.device = resolve_device(device)
+        self.rank, self.world_size = init_distributed(self.device)
+        if self.device.type == "cuda" and torch.distributed.is_initialized():
+            self.device = torch.device("cuda", local_rank())
         self.model = build_segmentor(cfg, device=self.device, seed=seed)
+        #: the model the train step runs: DistributedDataParallel's
+        #: wrapper in a process group, else the model itself
+        self.train_model = self.model
         self.loss_fn = build_loss(cfg)
         self.optimizer = None
         self.schedule = None
@@ -124,6 +136,32 @@ class Trainer:
             self.model, self.cfg, total_steps)
         self.accumulation = (GradientAccumulation(self.grad_accumulation)
                              if self.grad_accumulation > 1 else None)
+        if torch.distributed.is_initialized():
+            self.train_model = self._wrap_ddp()
+
+    def _wrap_ddp(self):
+        """The model in DistributedDataParallel. Its buffers (BN statistics,
+        the modules' constants) never change in a step: none is broadcast.
+        Every parameter gets a gradient in a step, frozen ones included,
+        unless the supervised layers leave out the last refine layer (a
+        ``fixed_*`` choice without it): only then does DDP search the graph
+        for unused parameters."""
+        from torch.nn.parallel import DistributedDataParallel
+        alt = self.cfg.apply_loss_type
+        last = str(self.cfg.num_decoder - 1)
+        unused = alt.startswith("fixed") and last not in alt.split("_")[1:]
+        cuda = self.device.type == "cuda"
+        # newer torch names the switch forward_sync_buffers (it still syncs
+        # them once at construction, which the seeded ranks agree on)
+        no_sync = ({"forward_sync_buffers": False} if "forward_sync_buffers"
+                   in inspect.signature(DistributedDataParallel).parameters
+                   else {"broadcast_buffers": False})
+        logger.info("DistributedDataParallel: rank %d of %d, backend %s, "
+                    "find_unused_parameters=%s", self.rank, self.world_size,
+                    torch.distributed.get_backend(), unused)
+        return DistributedDataParallel(
+            self.model, device_ids=[self.device.index] if cuda else None,
+            find_unused_parameters=unused, **no_sync)
 
     def _draw_loss_layers(self):
         """The supervised layers of a ``random_k`` config with k > 1
@@ -138,17 +176,18 @@ class Trainer:
         if k <= 1:
             return None
         d = self.cfg.num_decoder
-        rs = np.random.RandomState((self.seed * 1_000_003 + self.global_iter)
-                                   % (2 ** 31 - 1))
+        if self.rank == 0:
+            rs = np.random.RandomState(
+                (self.seed * 1_000_003 + self.global_iter) % (2 ** 31 - 1))
+        else:
+            rs = np.random.RandomState(np.random.SeedSequence(
+                [self.seed, self.global_iter, self.rank]).generate_state(1))
         extra = rs.choice(d - 1, k - 1, replace=False)
         return tuple(sorted(extra.tolist() + [d - 1]))
 
     def _step_generator(self) -> torch.Generator:
-        """The step's dropout and lifter draws, from (seed, global_iter):
-        a resumed run draws what an uninterrupted one would."""
-        seq = np.random.SeedSequence([self.seed, self.global_iter])
-        return torch.Generator(device=self.device).manual_seed(
-            int(seq.generate_state(1)[0]))
+        return step_generator(self.seed, self.global_iter, self.rank,
+                              self.device)
 
     def _to_device(self, batch: Dict[str, torch.Tensor]):
         return {k: v.to(self.device, non_blocking=True)
@@ -170,7 +209,9 @@ class Trainer:
 
         A ``state_dict`` wrapper is unwrapped; tensors the model has no
         place for (``num_batches_tracked``, detection heads) are skipped;
-        a shape that differs raises."""
+        a shape that differs raises. The port's names are the reference's,
+        so no tensor needs a mapping of its own (the FFN's ``pre_norm``
+        included)."""
         if backbone_path:
             sd = _read_state_dict(backbone_path)
             prefix = ("img_backbone." if any(
@@ -233,21 +274,24 @@ class Trainer:
         return True
 
     def save(self, last_iter: int = 0):
-        """Checkpoint at ``global_iter``; ``last_iter``: batches of the
-        current epoch already taken (0 at an epoch's end)."""
-        if int(os.environ.get("RANK", "0")) != 0:
-            return
-        state = {"model": self.model.state_dict(),
-                 "optimizer": self.optimizer.state_dict(),
-                 "epoch": self.epoch, "global_iter": self.global_iter,
-                 "last_iter": last_iter}
-        if self.accumulation is not None:
-            state["grad_accumulation"] = self.accumulation.state_dict()
-        save_checkpoint(self.work_dir, self.global_iter, state)
+        """Checkpoint at ``global_iter`` (rank 0 writes, the others wait
+        for it); ``last_iter``: batches of the current epoch already taken
+        (0 at an epoch's end)."""
+        if is_main_process():
+            state = {"model": self.model.state_dict(),
+                     "optimizer": self.optimizer.state_dict(),
+                     "epoch": self.epoch, "global_iter": self.global_iter,
+                     "last_iter": last_iter}
+            if self.accumulation is not None:
+                state["grad_accumulation"] = self.accumulation.state_dict()
+            save_checkpoint(self.work_dir, self.global_iter, state)
+        barrier()
 
     def _log_scalars(self, metrics, lr):
         """One JSON line per logging step in ``<work_dir>/metrics.jsonl``
-        (in place of the reference's TensorBoard writer)."""
+        (in place of the reference's TensorBoard writer), rank 0's."""
+        if not is_main_process():
+            return
         rec = {"epoch": self.epoch, "iter": self.global_iter, "lr": lr,
                "time": time.time(), **metrics}
         os.makedirs(self.work_dir, exist_ok=True)
@@ -271,7 +315,7 @@ class Trainer:
                 batch = self._to_device(batch)
                 data_time = time.time() - t_data
                 metrics = train_step(
-                    self.model, self.optimizer, self.schedule, self.loss_fn,
+                    self.train_model, self.optimizer, self.schedule, self.loss_fn,
                     batch, self._step_generator(), self._draw_loss_layers(),
                     self.accumulation)
                 self.global_iter += 1
@@ -299,7 +343,9 @@ class Trainer:
         """(mIoU %, occupancy IoU %) over the val loader, under inference
         mode, the lifter drawing from a generator seeded with ``seed``. A
         batch's counts are queued on the device behind its forward and read
-        after the next batch's forward is queued."""
+        after the next batch's forward is queued. In a process group each
+        rank evaluates its shard and the counts are summed over the
+        ranks."""
         miou = MeanIoU()
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         pending = None
@@ -318,12 +364,26 @@ class Trainer:
                 pending = counts
             if pending is not None:
                 miou.add_counts(pending)
-        self.last_counts = miou.counts.copy()
-        m, occ_iou, per_class = miou.result()
+        self.last_counts = all_reduce_sum_host(miou.counts)
+        m, occ_iou, per_class = compute_iou(self.last_counts)
         logger.info("val mIoU %.2f%%  occ IoU %.2f%%", m, occ_iou)
+        logger.info("val counts (seen, correct, predicted; per class, then "
+                    "occupied), summed over %d process(es): %s",
+                    self.world_size, json.dumps(self.last_counts.tolist()))
         for name, iou in zip(miou.label_str, per_class):
             logger.info("  %s: %.2f%%", name, iou * 100)
         return m, occ_iou
+
+
+def step_generator(seed: int, global_iter: int, rank: int = 0,
+                   device="cpu") -> torch.Generator:
+    """A step's dropout and lifter draws, from (seed, global_iter), and the
+    rank after rank 0: a resumed run draws what an uninterrupted one
+    would, rank 0 what a single process would, each rank its own."""
+    key = [seed, global_iter] + ([rank] if rank else [])
+    seq = np.random.SeedSequence(key)
+    return torch.Generator(device=device).manual_seed(
+        int(seq.generate_state(1)[0]))
 
 
 def _read_state_dict(path: str) -> Dict[str, torch.Tensor]:

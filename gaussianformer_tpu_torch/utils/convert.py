@@ -18,7 +18,8 @@ uses the reference (mmseg / mmdet / mmdet3d) module names, so its
 Both model families convert: GaussianFormer-2 (lifter v2 with its second
 tower, three-layer spconv) and the v1 models (``lifter.anchor`` /
 ``lifter.instance_feature`` alone, the FFN's ``identity_fc``, the
-single bias-free spconv ``layer.weight``, ``head.empty_scalar``).
+single bias-free spconv ``layer.weight``, ``head.empty_scalar``), and the
+FFN's optional ``pre_norm`` LayerNorm.
 
 The DCN offset conv keeps its channel order: both packages, like mmcv,
 emit 18 offsets as (dy, dx) per tap followed by 9 mask logits.
@@ -134,6 +135,8 @@ def _module(path: str, n_fpn_levels: int) -> Tuple[str, str]:
                 "dense"
         if op == "ffn" and rest == "identity_fc":
             return f"{pre}.identity_fc", "dense"
+        if op == "ffn" and rest == "pre_norm":
+            return f"{pre}.pre_norm", "norm"
         if op == "deformable":
             if rest in ("kps_generator/learnable_fc", "weights_fc",
                         "output_proj"):

@@ -8,6 +8,7 @@ import os
 import re
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -22,6 +23,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = "prob_gs6400_tiny"
 
 
+def _expected_record(batch, ms):
+    """The bench's numbers from its ms a forward, rounded once as the
+    root bench.py rounds them: frames/s to 3 places, and vs_baseline
+    from the unrounded frames/s."""
+    fps = batch / (ms / 1e3)
+    return round(fps, 3), round(fps / 10.0, 3)
+
+
 @pytest.mark.parametrize("batch", [1, 2])
 def test_bench_prints_its_json_line(capsys, batch):
     record, ms = bench.run(TINY, batch, "cpu")
@@ -34,8 +43,26 @@ def test_bench_prints_its_json_line(capsys, batch):
     suffix = "" if batch == 1 else f"_b{batch}"
     assert last["metric"] == f"{TINY}_infer_fps_cpu{suffix}"
     assert last["unit"] == "frames/s"
-    assert last["value"] == round(batch / (ms / 1e3), 3) > 0
-    assert last["vs_baseline"] == round(last["value"] / 10.0, 3)
+    assert (last["value"], last["vs_baseline"]) == _expected_record(batch,
+                                                                    ms)
+    assert last["value"] > 0
+
+
+def test_bench_rounds_its_record_once(capsys, monkeypatch):
+    """On a host clock that advances 50.089 ms a call, a forward reads
+    5.0089 ms: 199.6446 frames/s, whose vs_baseline is 19.964 from the
+    unrounded rate and would be 19.965 from the rounded one. The record
+    holds the former, as the root bench.py computes it."""
+    clock = iter(1000.0 + 0.050089 * i for i in range(1000))
+    monkeypatch.setattr(bench, "time",
+                        types.SimpleNamespace(perf_counter=lambda: next(clock)))
+    record, ms = bench.run(TINY, 1, "cpu")
+    assert abs(ms - 5.0089) < 1e-9
+    assert (record["value"], record["vs_baseline"]) == _expected_record(1, ms)
+    assert record["vs_baseline"] == 19.964
+    assert round(record["value"] / 10.0, 3) == 19.965
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == record
 
 
 def test_train_then_eval_cli(tmp_path, capsys):
@@ -96,10 +123,15 @@ def test_entry_points_default_to_cuda(tmp_path, entry):
 
 
 def test_runner_refuses_several_processes(tmp_path, monkeypatch):
+    """A world of several processes whose process group cannot be set up
+    (no address to meet at) raises rather than train as one process of
+    many (the port trains in DDP: test_torch_port_ddp.py)."""
     from gaussianformer_tpu_torch.configs import get_config
     from gaussianformer_tpu_torch.train.runner import Trainer
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="DDP"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+    with pytest.raises(RuntimeError, match="MASTER_ADDR"):
         Trainer(get_config(TINY), None, None, str(tmp_path), device="cpu")
 
 
@@ -107,6 +139,9 @@ IMPORT_ALL = """
 import importlib, pkgutil, sys
 import gaussianformer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert {pkg.__name__ + "." + m for m in (
+    "losses.focal", "losses.bce", "parallel", "parallel.distributed",
+    "train.runner", "eval")} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

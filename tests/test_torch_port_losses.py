@@ -61,8 +61,9 @@ def test_occupancy_loss_matches_jax(layers):
         tuple(probs))
     leaves = [torch.from_numpy(np.array(p)).requires_grad_()
               for p in probs]
-    got = occupancy_loss(OccupancyLossCfg(), leaves,
-                         torch.from_numpy(labels), torch.from_numpy(mask))
+    cfg = OccupancyLossCfg(manual_class_weight=MANUAL_CLASS_WEIGHT)
+    got = occupancy_loss(cfg, leaves, torch.from_numpy(labels),
+                         torch.from_numpy(mask))
     np.testing.assert_allclose(got.item(), float(ref), rtol=1e-5)
     grads = torch.autograd.grad(got, leaves)
     for g, r in zip(grads, ref_g):

@@ -44,7 +44,9 @@ CLASSES = list(range(1, 17))
 @pytest.mark.parametrize("seed", range(4))
 def test_iou_counts_equal_jax(seed):
     """Integer counts exactly, and the mIoU and occupancy IoU from them,
-    one sample and accumulated over three."""
+    one sample and accumulated over three; summed over the processes of
+    no process group, the counts are this process's, as in JAX (the sum
+    over two processes: test_torch_port_ddp.py)."""
     rng = np.random.RandomState(seed)
     metric, jmetric = MeanIoU(), jmiou.MeanIoU()
     for _ in range(3):
@@ -66,8 +68,8 @@ def test_iou_counts_equal_jax(seed):
     np.testing.assert_array_equal(got[2], ref[2])
     assert compute_iou(metric.counts)[:2] == jmiou.compute_iou(
         jmetric.counts)[:2]
-    with pytest.raises(NotImplementedError, match="DDP"):
-        metric.result(distributed=True)
+    assert metric.result(distributed=True)[:2] == \
+        jmetric.result(distributed=True)[:2] == ref[:2]
 
 
 def test_multistep_schedule_matches_jax():

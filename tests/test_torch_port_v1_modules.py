@@ -301,8 +301,10 @@ def test_occupancy_loss_with_softmax_matches_jax(layers):
         lambda p: jax_occupancy_loss(jcfg, list(p), labels, mask))(
         tuple(jnp.asarray(x) for x in logits))
     leaves = [torch.from_numpy(x).requires_grad_(True) for x in logits]
-    got = occupancy_loss(OccupancyLossCfg(lovasz_use_softmax=True), leaves,
-                         torch.from_numpy(labels), torch.from_numpy(mask))
+    cfg = OccupancyLossCfg(lovasz_use_softmax=True,
+                           manual_class_weight=JAX_CLASS_WEIGHT)
+    got = occupancy_loss(cfg, leaves, torch.from_numpy(labels),
+                         torch.from_numpy(mask))
     np.testing.assert_allclose(got.item(), float(ref), rtol=1e-5)
     grads = torch.autograd.grad(got, leaves)
     for g, r in zip(grads, ref_g):
@@ -311,6 +313,8 @@ def test_occupancy_loss_with_softmax_matches_jax(layers):
                                    atol=1e-5 * np.abs(r).max())
     # not the probabilities' loss: the same numbers read as probabilities
     # give another value
-    other = occupancy_loss(OccupancyLossCfg(), [x.detach() for x in leaves],
-                           torch.from_numpy(labels), torch.from_numpy(mask))
+    other = occupancy_loss(
+        OccupancyLossCfg(manual_class_weight=JAX_CLASS_WEIGHT),
+        [x.detach() for x in leaves], torch.from_numpy(labels),
+        torch.from_numpy(mask))
     assert abs(other.item() - got.item()) > 1e-2
