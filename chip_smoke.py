@@ -4,7 +4,8 @@
 configs (gs25600_solid and gs144000), each its inference and training step;
 the prob head's threshold label mode and per-axis splat boxes; the port's
 bench, and its train and eval CLIs on a nuScenes-shaped set of files; the
-model and loss options no shipped config sets; the CLIs in DDP.
+model and loss options no shipped config sets; the CLIs in DDP; the
+checkpoint converter and the visualize CLI.
 
     python3 chip_smoke.py
 
@@ -18,8 +19,8 @@ Phases (each raises on failure, so the script exits nonzero):
             launch counter set to 0 just before, read just after: 52 DCN,
             1 FPS, 4 deformable, 1 splat binning and 1 splat launches, no
             backward kernel),
-            three timed frames and one profiled frame for the device's idle
-            share;
+            ten timed frames (as many as the bench's loop) and one profiled
+            frame for the device's idle share;
 3. kernels  each forward kernel against its plain PyTorch version on the
             captured inputs, with its tolerance; kernel, plain and bound
             times; for K1 also cuDNN's dense bf16 3x3 conv of the same
@@ -28,7 +29,8 @@ Phases (each raises on failure, so the script exits nonzero):
             as many steps over no points); for K4 its tile bins
             (csrc/splat_bin.cu) against the plain bins, every element
             equal, with their entries, COVERS share, list lengths and time
-            (a row of their own), K4 timed with its binning and held equal
+            (a row of their own; both timed sized by the path's bound, as
+            the path bins), K4 timed with its binning and held equal
             on the path's bins, and whether its sums are the plain
             version's bits (informational);
 4. small    the tiny config's forward on the GPU (towers without DCN,
@@ -41,18 +43,23 @@ Phases (each raises on failure, so the script exits nonzero):
             step for the device's idle share; finite loss terms and
             gradient norm, trained parameters moved, frozen ones unchanged
             to the bit;
+5b. repeat  two plain full-width train runs of 2 steps from one seed and
+            one batch (new models), counted: how many gradient leaves are
+            bit-equal after each step and the losses' difference (run after
+            phase 7; it decides what phase 15 holds);
 6. backward each backward kernel against its plain backward version on the
             captured inputs and cotangents (K7 on the forward's bins, as
             the path runs it: equal to K7 binning on its own, the same bits
             on a second call, each of its two launches timed; K6 timed with
             its pixel binning, the same bits on a second call, its bins
             against the plain bins in a row of their own, each of its two
-            launches timed); for K5 also
-            the share of
-            corners outside its shared-memory g_x window, each of its two
-            launches' time (CUDA events), and the stage-3 inputs once
-            more with the offsets moved by up to 6 px, so that its
-            global-atomic fallback runs at full width;
+            launches timed); for K5 also the same bits on a second call,
+            the share of corners outside its shared-memory g_x window,
+            each of its six launches' time (CUDA events; the fallback bins
+            are seven small ones, timed as one), and the stage-3 inputs
+            once more with the offsets moved by up to 6 px, so that its
+            fallback records run at full width (there too a second call
+            gives the same bits);
 7. small    two tiny-config train steps on the GPU against the CPU;
 8. v1       gs25600_solid at full width (25,600 anchors and the empty
             Gaussian, one tower): frames as in phase 2 (26 DCN, no FPS, 4
@@ -88,12 +95,18 @@ Phases (each raises on failure, so the script exits nonzero):
             per-axis boxes, against their plain versions (printed, not in
             the kernels line: no shipped config runs this path);
 12. bench   the port's bench (``gaussianformer_tpu_torch.bench.run``) on
-            prob_gs6400 at batch 1, in this process, run first (after the
-            build, before phase 2), as a bench process of its own would run
-            it: its JSON line, its launch counts (11 frames' worth: every
-            count set to 0 just before, read just after), and, after phase
-            2, its ms/frame within 15% of phase 2's frame_ms (both include
-            the host's share of a frame, which moves with the shared host);
+            prob_gs6400 at batch 1 with ``--pipeline 4``, in this process,
+            run first (after the build, before phase 2), as a bench process
+            of its own would run it: its JSON line, its ``# pipeline(4)``
+            line from one CUDA-graph replay of 4 frames whose final_occ
+            equals the same 4 frames run eagerly (the same images and
+            pre-drawn lifter draws) bit for bit, its launch counts (23
+            frames' worth: the loop's 11, the pipeline's 4 warm-up and 4
+            captured frames, the 4 eager ones; a replay counts nothing;
+            every count set to 0 just before, read just after), and, after
+            phase 2, the loop's ms/frame within 15% of phase 2's frame_ms
+            (both include the host's share of a frame, which moves with the
+            shared host);
 13. entry   the entry points on a 2-frame nuScenes-shaped set of files in a
             temporary directory (six 1600 x 900 PNGs a frame, SurroundOcc
             labels, the infos pkl): the native codec loaded; the train CLI
@@ -124,11 +137,24 @@ Phases (each raises on failure, so the script exits nonzero):
 15. ddp     the train CLI under ``python -m torch.distributed.run
             --standalone --nproc_per_node=1`` on phase 13's files, seed and
             flags: its log shows DDP over NCCL, its losses equal phase 13's
-            (step 1 within 1e-5 relative, step 2 within 1e-3), rank 0 wrote
+            (the loss within 1e-5 and the grad norm within 1e-4 relative,
+            at step 1 and, where phase 5b's runs repeat, step 2), rank 0 wrote
             ckpt_000000002.pt and ``latest``; the eval CLI under the same
             launcher on phase 13's checkpoint logs phase 13's counts. The
             card's host has one card: a world of two is held on the CPU
-            (gloo, tests/test_torch_port_ddp.py).
+            (gloo, tests/test_torch_port_ddp.py);
+16. convert the checkpoint converter (``python -m
+            gaussianformer_tpu_torch.convert_checkpoint``'s ``main``,
+            ``--strict``) on a reference-named state_dict of the full-width
+            flagship with seed-7 weights and the reference's weightless
+            entries; the eval CLI on its output directory (phase 13's two
+            frames, counted) holds those weights and counts what they count
+            evaluated directly;
+17. vis     the visualize CLI (``python -m
+            gaussianformer_tpu_torch.visualize``'s ``main``) at the
+            flagship's full width on one synthetic frame, counted: four
+            PNGs, each non-empty and of more than one colour (the card's
+            host has no matplotlib: ``utils/vis.py`` draws them with PIL).
 
 The second-to-last lines are the card's name and power limit and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -148,6 +174,11 @@ import types
 
 FRAMES = 3
 STEPS = 3
+# phase 2 times as many frames as the bench's loop, which phase 12 holds
+# to it: a frame is partly host time, which moves with the shared host
+FLAGSHIP_FRAMES = 10
+# the bench's frames in one CUDA graph (phase 12)
+PIPELINE = 4
 NO_LAUNCH = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
              "splat": 0, "splat_additive": 0, "dcn_bwd": 0,
              "deformable_bin": 0, "deformable_bwd": 0, "splat_bwd": 0,
@@ -172,7 +203,7 @@ V1_ALL_TRAIN_LAUNCHES = {**V1_TRAIN_LAUNCHES, "splat_bin": 4,
 # tolerances of the backward kernels against their plain versions: a bf16
 # output may differ by a rounding flip of its fp32 sum (two bf16 ulps at the
 # top of the range); fp32 gradients summed over thousands of terms in
-# another order (with atomics for K5), to 1e-3 of the largest |ref|
+# another order, to 1e-3 of the largest |ref|
 BF16_TOL = 2.0 ** -7
 SUM_TOL = 1e-3
 # a box of more voxels than this is the v1 head's empty Gaussian, the last
@@ -180,7 +211,7 @@ SUM_TOL = 1e-3
 # splat's bins): its rows dwarf the others', so they are held on their own
 BIG_BOX = 8192
 # K5 once more on the stage-3 inputs with offsets moved by up to this many
-# pixels, so that its global-atomic fallback runs at full width
+# pixels, so that its fallback records run at full width
 DCN_PERTURB_PX = 6.0
 # the tiny train step, GPU against CPU: fp32 sums in another order through
 # the whole model and two optimizer steps
@@ -287,6 +318,10 @@ def main() -> int:
         f"full fp32)")
     card = gpu_name_and_power()
     log(f"# card: {card}")
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        log(f"# phase {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -305,13 +340,16 @@ def main() -> int:
 
     # ---- 12. the port's bench, first, as a process of its own runs it
     bench = bench_phase(mods)
+    mark(12)
 
     # ---- 2. full forward
     cfg = get_config("prob_gs6400")
     model, batch = build(cfg, build_segmentor, synthetic_batch)
-    fwd = frame_phase(cfg, model, batch, mods, EXPECTED_LAUNCHES, FRAMES)
+    fwd = frame_phase(cfg, model, batch, mods, EXPECTED_LAUNCHES,
+                      FLAGSHIP_FRAMES)
     frame_ms, wall_ms = fwd["frame_ms"], fwd["frame_wall_ms"]
     check_bench(bench, frame_ms)
+    mark(2)
 
     # ---- 3. kernels against their plain versions on the captured inputs
     rows = []
@@ -326,14 +364,17 @@ def main() -> int:
     k1 = {r["shape"][3]: r for r in rows if r["name"] == "deform_conv2d"}
     k1[256]["stage4"] = {k: k1[512][k] for k in (
         "shape", "ms", "conv_ms", "bound_ms", "max_abs_err")}
+    mark(3)
 
     # ---- 4. the tiny config end to end, GPU against CPU
     check_small("prob_gs6400_tiny", get_config, build_segmentor,
                 synthetic_batch)
+    mark(4)
 
     # ---- 5. the full-width train step
     train = train_phase(cfg, model, batch, mods, EXPECTED_TRAIN_LAUNCHES,
                         STEPS)
+    mark(5)
 
     # ---- 6. backward kernels against their plain versions; without
     # autograd, since the captured tensors may require grad (saved inputs
@@ -351,33 +392,52 @@ def main() -> int:
           if r["name"] == "deform_conv2d_backward"}
     k5[256]["stage4"] = {k: k5[512][k] for k in (
         "shape", "ms", "launch_ms", "bound_ms", "window_outside_share",
-        "max_abs_err")}
+        "max_abs_err", "repeat_bit_equal")}
+    mark(6)
 
     # ---- 7. the tiny train step, GPU against CPU
     check_small_train("prob_gs6400_tiny", get_config, build_segmentor,
                       synthetic_batch)
     del model, batch
     torch.cuda.empty_cache()
+    mark(7)
+
+    # ---- 5b. two plain train runs: the same bits?
+    repeat = repeat_phase(cfg, build_segmentor, synthetic_batch, mods)
+    mark("5b")
 
     # ---- 8. the v1 configs
     v1 = v1_phase(get_config, build_segmentor, synthetic_batch, mods, rows)
+    mark(8)
 
     # ---- 9-11. the GaussianFormer-2 family, the threshold label mode and
     # per-axis boxes
     family = prob_family_phase(get_config, build_segmentor, synthetic_batch,
                                mods, rows)
+    mark("9-11")
 
     root = tempfile.mkdtemp(prefix="gf_entry_")
     try:
         # ---- 13. the train and eval CLIs
         entry = entry_phase(mods, root)
+        mark(13)
 
         # ---- 14. the options no shipped config sets
         options = options_phase(get_config, build_segmentor,
                                 synthetic_batch, mods, rows)
+        mark(14)
 
         # ---- 15. the CLIs under torch.distributed.run, DDP over NCCL
-        ddp = ddp_phase(entry, root)
+        ddp = ddp_phase(entry, root, repeat["repeatable"])
+        mark(15)
+
+        # ---- 16. the checkpoint converter, then the eval CLI on its output
+        convert = convert_phase(mods, root, entry)
+        mark(16)
+
+        # ---- 17. the visualize CLI at full width
+        vis = vis_phase(mods, root)
+        mark(17)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     entry = {k: v for k, v in entry.items() if not k.startswith("_")}
@@ -390,8 +450,8 @@ def main() -> int:
                     "frame_wall_ms": wall_ms,
                     "frame_idle_share": fwd["frame_idle_share"],
                     **{k: v for k, v in train.items() if k != "launches"},
-                    **v1, **family, "bench": bench, **entry, **options,
-                    **ddp}))
+                    **repeat, **v1, **family, "bench": bench, **entry,
+                    **options, **ddp, **convert, **vis}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -687,17 +747,40 @@ def times(counts, n):
 
 
 def bench_phase(mods):
-    """Phase 12: the port's bench on prob_gs6400, batch 1. Returns its JSON
-    record with its ms/frame."""
+    """Phase 12: the port's bench on prob_gs6400, batch 1, with its
+    ``--pipeline`` of PIPELINE frames in one CUDA graph: the replay's
+    final_occ equals, bit for bit, the same frames run eagerly on the same
+    images and pre-drawn draws. Counted: the warm-up and the 10 frames of
+    the loop, the pipeline's side-stream warm-up and capture (a replay
+    launches nothing that counts) and the eager frames compared with it.
+    Returns its JSON record with its ms/frame and the pipeline's."""
     import torch
     from gaussianformer_tpu_torch import bench
-    frames = 1 + bench.ITERS
-    record, ms = counted(mods, "bench", times(EXPECTED_LAUNCHES, frames),
-                         lambda: bench.run("prob_gs6400", 1, "cuda"))
+    piped = {}
+
+    def compare(p):
+        eager = [p["frame"](i) for i in range(PIPELINE)]
+        piped["equal"] = [torch_equal(a, b) for a, b in zip(p["outs"], eager)]
+        piped["ms"] = p["ms"]
+        piped["idle"] = idle_share(p["graph"].replay, p["ms"] * PIPELINE,
+                                   f"pipeline({PIPELINE}) replay")
+    frames = 1 + bench.ITERS + 3 * PIPELINE
+    record, ms = counted(mods, "bench --pipeline", times(EXPECTED_LAUNCHES,
+                                                         frames),
+                         lambda: bench.run("prob_gs6400", 1, "cuda",
+                                           PIPELINE, on_pipeline=compare))
     if record["metric"] != "prob_gs6400_infer_fps_per_chip":
         raise RuntimeError(f"bench metric {record['metric']}")
+    log(f"# pipeline({PIPELINE}): {piped['ms']:.3f} ms/frame from one CUDA "
+        f"graph replay against the loop's {ms:.3f}; the replay's final_occ "
+        f"bit-equal to the eager frames: {piped['equal']}")
+    if not all(piped["equal"]):
+        raise RuntimeError("the CUDA graph's frames differ from the eager "
+                           "ones")
     torch.cuda.empty_cache()
-    return dict(record, ms_per_frame=ms)
+    return dict(record, ms_per_frame=ms, pipeline_frames=PIPELINE,
+                pipeline_ms_per_frame=piped["ms"],
+                pipeline_idle_share=piped["idle"])
 
 
 def check_bench(bench, frame_ms):
@@ -722,9 +805,9 @@ def entry_phase(mods, root):
     from gaussianformer_tpu_torch import eval as eval_cli
     from gaussianformer_tpu_torch import native
     from gaussianformer_tpu_torch.configs import get_config
-    from gaussianformer_tpu_torch.data import DataLoader, ShardedSampler
+    from gaussianformer_tpu_torch.data import DataLoader
     from gaussianformer_tpu_torch.data.synthetic import write_nuscenes_files
-    from gaussianformer_tpu_torch.metrics import MeanIoU, compute_iou
+    from gaussianformer_tpu_torch.metrics import compute_iou
     from gaussianformer_tpu_torch.train import __main__ as train_cli
     from gaussianformer_tpu_torch.train.runner import Trainer, build_dataset
     from gaussianformer_tpu_torch.utils.checkpoint import latest_checkpoint
@@ -791,27 +874,15 @@ def entry_phase(mods, root):
     miou, occ_iou, _ = compute_iou(ev.last_counts)
     if not (math.isfinite(miou) and math.isfinite(occ_iou)):
         raise RuntimeError(f"eval mIoU {miou}, occupancy IoU {occ_iou}")
-    metric = MeanIoU()
-    gen = torch.Generator(device="cuda").manual_seed(ev.seed)
-    direct = DataLoader(ev.val_loader.dataset, 1, sampler=ShardedSampler(
-        len(ev.val_loader.dataset), shuffle=False))
-    with torch.inference_mode():
-        for batch in direct:
-            b = {k: v.cuda() for k, v in batch.items()}
-            out = ev.model(b["imgs"], b["projection_mat"], b["image_wh"],
-                           b["occ_xyz"], b["occ_label"],
-                           b["occ_cam_mask"], generator=gen)
-            metric.update(out["final_occ"], out["sampled_label"],
-                          out["occ_mask"])
-    same = bool(np.array_equal(ev.last_counts, metric.counts))
+    same = bool(np.array_equal(ev.last_counts, direct_counts(ev.model, ev)))
     log(f"# eval CLI: mIoU {miou:.4f}%, occupancy IoU {occ_iou:.4f}% "
         f"(random weights, random labels), {eval_s:.1f} s; its counts "
         f"equal a direct forward's: {same}")
     if not same:
-        raise RuntimeError(f"eval counts {ev.last_counts.tolist()} != "
-                           f"direct {metric.counts.tolist()}")
+        raise RuntimeError(f"eval counts {ev.last_counts.tolist()} differ "
+                           f"from a direct forward's")
     eval_counts = ev.last_counts.tolist()
-    del ev, out, b
+    del ev
     torch.cuda.empty_cache()
     return dict(_files=files[:8], _latest=latest, _steps=steps,
                 _eval_counts=eval_counts, entry_write_s=write_s, entry_train_cli_s=train_s,
@@ -819,6 +890,169 @@ def entry_phase(mods, root):
                 entry_data_s=[r["data_time"] for r in steps],
                 entry_step_s=[r["step_time"] for r in steps],
                 entry_miou=miou, entry_occ_iou=occ_iou)
+
+
+def direct_counts(model, ev):
+    """The counts of ``model`` on the eval CLI's (``ev``, its Trainer)
+    batches in order, with the generator seeded as eval seeds it: what the
+    eval CLI's counts must equal."""
+    import torch
+    from gaussianformer_tpu_torch.data import DataLoader, ShardedSampler
+    from gaussianformer_tpu_torch.metrics import MeanIoU
+    metric = MeanIoU()
+    gen = torch.Generator(device="cuda").manual_seed(ev.seed)
+    direct = DataLoader(ev.val_loader.dataset, 1, sampler=ShardedSampler(
+        len(ev.val_loader.dataset), shuffle=False))
+    with torch.inference_mode():
+        for batch in direct:
+            b = {k: v.cuda() for k, v in batch.items()}
+            out = model(b["imgs"], b["projection_mat"], b["image_wh"],
+                        b["occ_xyz"], b["occ_label"], b["occ_cam_mask"],
+                        generator=gen)
+            metric.update(out["final_occ"], out["sampled_label"],
+                          out["occ_mask"])
+    return metric.counts
+
+
+def repeat_phase(cfg, build_segmentor, synthetic_batch, mods):
+    """Phase 5b: two plain full-width train runs of 2 steps, each from a
+    new model of seed 0 on one batch with the step's generator seeded 0:
+    how many gradient leaves are bit-equal after each step, and the
+    losses' difference. Counted as 4 train steps. Returns the summary;
+    ``repeatable`` when every leaf and loss is equal at both steps."""
+    import torch
+    from gaussianformer_tpu_torch.train.optim import build_optimizer
+    from gaussianformer_tpu_torch.train.step import build_loss, train_step
+
+    def run():
+        model, batch = build(cfg, build_segmentor, synthetic_batch)
+        opt, schedule = build_optimizer(model, cfg, 10000)
+        loss_fn = build_loss(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        steps = []
+        for _ in range(2):
+            metrics = train_step(model, opt, schedule, loss_fn, batch, gen)
+            steps.append(({k: v.item() for k, v in metrics.items()},
+                          {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()
+                           if p.grad is not None}))
+        del model, opt, batch
+        torch.cuda.empty_cache()
+        return steps
+    first, second = counted(
+        mods, "two plain train runs of 2 steps",
+        times(EXPECTED_TRAIN_LAUNCHES, 4), lambda: (run(), run()))
+    equal, loss_diff, leaves = [], [], 0
+    for step, ((ma, ga), (mb, gb)) in enumerate(zip(first, second), 1):
+        if set(ga) != set(gb):
+            raise RuntimeError("the two runs' gradient leaves differ")
+        leaves = len(ga)
+        same = [n for n in ga if torch.equal(ga[n], gb[n])]
+        equal.append(len(same))
+        loss_diff.append(abs(ma["loss"] - mb["loss"]))
+        worst = max(((ga[n] - gb[n]).abs().max().item(), n)
+                    for n in ga if n not in same) if len(same) < leaves \
+            else None
+        log(f"# two plain {cfg.name} train runs, step {step}: {len(same)} "
+            f"of {leaves} gradient leaves bit-equal; losses {ma['loss']} "
+            f"and {mb['loss']} (difference {loss_diff[-1]}), grad norms "
+            f"{ma['grad_norm']} and {mb['grad_norm']}"
+            + ("" if worst is None else
+               f"; largest difference {worst[0]:.3e} in {worst[1]}"))
+    repeatable = all(e == leaves for e in equal) and not any(loss_diff)
+    del first, second
+    torch.cuda.empty_cache()
+    return dict(repeat_equal_leaves=equal, repeat_leaves=leaves,
+                repeat_loss_diff=loss_diff, repeatable=repeatable)
+
+
+def convert_phase(mods, root, entry):
+    """Phase 16: the checkpoint converter on a reference-named state_dict
+    of the full-width flagship (seed-7 weights, which the converter's
+    seed-0 template does not hold, with the entries the reference saves
+    and the port drops), ``--strict``; then the eval CLI on its output
+    directory (``latest``) on phase 13's two frames, counted, against the
+    same weights evaluated directly."""
+    import os
+    import numpy as np
+    import torch
+    from gaussianformer_tpu_torch import convert_checkpoint
+    from gaussianformer_tpu_torch import eval as eval_cli
+    from gaussianformer_tpu_torch.configs import get_config
+    from gaussianformer_tpu_torch.models.segmentor import build_segmentor
+    cfg = get_config("prob_gs6400")
+    model = build_segmentor(cfg, device="cuda", seed=7)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    extra = {k[:-len("running_var")] + "num_batches_tracked": torch.tensor(1)
+             for k in sd if k.endswith("running_var")}
+    for i, op in enumerate(cfg.operation_order):
+        if op == "spconv":
+            extra[f"encoder.layers.{i}.pc_range"] = torch.tensor(
+                cfg.pc_range)
+            extra[f"encoder.layers.{i}.grid_size"] = torch.tensor(
+                cfg.spconv_grid_size)
+    ref_path = os.path.join(root, "reference.pth")
+    torch.save({"state_dict": {**sd, **extra}}, ref_path)
+    out = os.path.join(root, "converted")
+    t0 = time.perf_counter()
+    code = convert_checkpoint.main(["--config", cfg.name, "--torch-ckpt",
+                                    ref_path, "--out", out, "--strict"])
+    convert_s = time.perf_counter() - t0
+    if code != 0:
+        raise RuntimeError(f"the converter exited {code}")
+    t0 = time.perf_counter()
+    ev = counted(mods, "eval CLI on the converted checkpoint (2 frames)",
+                 times(EXPECTED_LAUNCHES, 2),
+                 lambda: eval_cli.main(entry["_files"] + [
+                     "--config", cfg.name, "--work-dir", out]))
+    eval_s = time.perf_counter() - t0
+    held = ev.model.state_dict()
+    weights = all(torch_equal(held[k].cpu(), v) for k, v in sd.items())
+    same = bool(np.array_equal(ev.last_counts, direct_counts(model, ev)))
+    log(f"# converter: {len(sd) + len(extra)} reference entries, "
+        f"{len(extra)} dropped, {convert_s:.1f} s; the eval CLI on its "
+        f"directory holds the reference's weights: {weights}, and its "
+        f"counts equal the same weights evaluated directly: {same} "
+        f"({eval_s:.1f} s)")
+    if not (weights and same):
+        raise RuntimeError("the converted checkpoint is not what the eval "
+                           "CLI evaluated")
+    del model, ev, held, sd
+    torch.cuda.empty_cache()
+    return dict(convert_s=convert_s, convert_eval_s=eval_s,
+                convert_counts_equal=same)
+
+
+def vis_phase(mods, root):
+    """Phase 17: the visualize CLI at the flagship's full width on one
+    synthetic frame, counted: its four PNGs, each non-empty and of more
+    than one colour (drawn with matplotlib where it is installed, else with
+    PIL, as ``utils/vis.py`` does)."""
+    import importlib.util
+    import os
+    import numpy as np
+    from PIL import Image
+    from gaussianformer_tpu_torch import visualize
+    work = os.path.join(root, "vis")
+    t0 = time.perf_counter()
+    written = counted(mods, "visualize CLI (1 frame)", EXPECTED_LAUNCHES,
+                      lambda: visualize.main([
+                          "--config", "prob_gs6400", "--work-dir", work,
+                          "--synthetic", "--num-samples", "1"]))
+    vis_s = time.perf_counter() - t0
+    sizes, colours = [], []
+    for path in written:
+        px = np.asarray(Image.open(path).convert("RGB"))
+        sizes.append(os.path.getsize(path))
+        colours.append(len(np.unique(px.reshape(-1, 3), axis=0)))
+    renderer = ("matplotlib" if importlib.util.find_spec("matplotlib")
+                else "PIL (no matplotlib on this host)")
+    log(f"# visualize CLI: {[os.path.basename(p) for p in written]}, "
+        f"{sizes} bytes, {colours} colours, drawn with {renderer}, "
+        f"{vis_s:.1f} s")
+    if len(written) != 4 or min(sizes) == 0 or min(colours) < 2:
+        raise RuntimeError(f"the visualize CLI wrote {written}")
+    return dict(vis_s=vis_s, vis_bytes=sizes, vis_colours=colours)
 
 
 # phase 14: the options no shipped config sets, as the JAX package reaches
@@ -981,10 +1215,11 @@ def run_launched(args, timeout, what):
     return out
 
 
-def ddp_phase(entry, root):
+def ddp_phase(entry, root, repeatable):
     """Phase 15: the train and eval CLIs under ``torch.distributed.run`` in
     a world of one (NCCL, DDP) on phase 13's files, seed and flags; the
-    steps' losses and the eval counts against phase 13's."""
+    steps' losses and the eval counts against phase 13's: step 1's, and
+    step 2's too where two plain runs repeat their bits (phase 5b)."""
     import os
     from gaussianformer_tpu_torch.utils.checkpoint import latest_checkpoint
     work = os.path.join(root, "work_ddp")
@@ -1006,17 +1241,19 @@ def ddp_phase(entry, root):
         raise RuntimeError(f"DDP steps {steps} against {plain}")
     rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(steps, plain)]
            for k in ("loss", "grad_norm")}
+    held = 2 if repeatable else 1
     log(f"# DDP (world of one, NCCL) step losses "
         f"{[r['loss'] for r in steps]} and grad norms "
         f"{[r['grad_norm'] for r in steps]} against phase 13's "
         f"{[r['loss'] for r in plain]} and "
-        f"{[r['grad_norm'] for r in plain]}: relative {rel} (required: the "
-        f"step-1 loss <= 1e-5, the step-1 grad norm <= 1e-4; step 2 is not "
-        f"held: two plain runs on one H100 differed there by 3.3e-3)")
-    if not (rel["loss"][0] <= 1e-5 and rel["grad_norm"][0] <= 1e-4
+        f"{[r['grad_norm'] for r in plain]}: relative {rel} (required at "
+        f"the first {held} step(s): the loss <= 1e-5, the grad norm <= "
+        f"1e-4; two plain runs repeat their bits: {repeatable})")
+    if not (all(rel["loss"][i] <= 1e-5 and rel["grad_norm"][i] <= 1e-4
+                for i in range(held))
             and all(math.isfinite(r[k]) for r in steps
                     for k in ("loss", "grad_norm"))):
-        raise RuntimeError(f"DDP step 1 differs from the plain run: {rel}")
+        raise RuntimeError(f"DDP steps differ from the plain run: {rel}")
     latest = latest_checkpoint(work)
     if latest is None or os.path.basename(latest) != "ckpt_000000002.pt":
         raise RuntimeError(f"DDP run's latest checkpoint {latest}")
@@ -1227,8 +1464,11 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
                           f"semantics zeroed)", fn(*args0),
                           splat.splat_accumulate_plain(*args0), c)
             del sem0, args0
-        # the kernel's time includes its binning (the call builds its own)
-        ms = cuda_ms(lambda: fn(*args), 10)
+        # the kernel's time includes its binning, sized as the path's
+        # bins are (the call builds its own)
+        cap = path_capacity(kw)
+        ms = cuda_ms(lambda: fn(*args, bins=splat.bin_gaussians_cuda(
+            points, box, grid, cap)), 10)
         pairs = splat_pairs(points, box, grid)
         # per (point, Gaussian) pair in the AABB: displacement and
         # quadratic form (~20), exp (~4), C multiply-adds
@@ -1245,7 +1485,7 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
                    launches=launches["splat_additive"],
                    shape=[n, gdata.shape[0]], aabb_pairs=pairs, report=True,
                    extra_rows=[check_bins(points, box, grid, suffix,
-                                          launches, mods, True)])
+                                          launches, mods, True, cap)])
     else:
         points, gdata, box, sem_aug, grid, variant = args
         # the path hands K4 its bins; timed and checked here building its own
@@ -1275,7 +1515,9 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
             if hold_ties:
                 held_combine_labels(f"splat_prob_labels{suffix}", got, ref,
                                     splat)
-        ms = cuda_ms(lambda: fn(*args, **kw), 10)
+        cap = path_capacity(path_kw)
+        ms = cuda_ms(lambda: fn(*args, **kw, bins=splat.bin_gaussians_cuda(
+            points, box, grid, cap)), 10)
         pairs = splat_pairs(points, box, grid)
         c = sem_aug.shape[1]
         # per (point, Gaussian) pair in the AABB: displacement and
@@ -1293,7 +1535,7 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
                    aabb_pairs=pairs, report=True,
                    extra_rows=[check_bins(points, box, grid, suffix,
                                           launches, mods,
-                                          mode == "combine")])
+                                          mode == "combine", cap)])
         log(f"# {row['name']}: {pairs} AABB pairs, {gdata.shape[0]} "
             f"Gaussians")
     peak = PEAK_BF16 if name == "dcn" else PEAK_FP32
@@ -1317,6 +1559,13 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
         raise RuntimeError(f"{row['name']} disagrees with its plain "
                            f"version: {err} > {tol}")
     return row
+
+
+def path_capacity(kw):
+    """The entries the path's bins (``kw["bins"]``, where the path handed
+    K4 its bins) have room for: the bound the head sizes them by."""
+    bins = kw.get("bins")
+    return None if bins is None else bins.capacity
 
 
 def held_given_bins(name, got, on_path_bins):
@@ -1343,38 +1592,56 @@ def log_bit_equal(name, got, ref):
            f", one_minus {torch_equal(got[1], ref[1])}"))
 
 
-def check_bins(points, box, grid, suffix, launches, mods, report):
+def check_bins(points, box, grid, suffix, launches, mods, report,
+               cap=None):
     """The splat's tile bins (``csrc/splat_bin.cu``) against their plain
-    version on the path's boxes, every tensor equal; their time (CUDA
-    events, the one host read included), the entries, the COVERS share and
-    the tiles' mean and largest list lengths. Returns its kernels-line
-    row."""
+    version on the path's boxes, every tensor equal (the first
+    ``tile_start[-1]`` of the entries and slots), and the flag word against
+    the plain one; their time (CUDA events, the eager call's one read of
+    the flag word included), the entries, the COVERS share and the tiles'
+    mean and largest list lengths. ``cap``: the path's bound on the
+    entries, which sizes the bins as on the path (None: by the boxes' own
+    tiles, one more host read). Returns its kernels-line row."""
     splat = mods.splat
-    got = splat.bin_gaussians_cuda(points, box, grid)
+    got = splat.bin_gaussians_cuda(points, box, grid, cap)
     ref, plain_ms = timed(lambda: splat.bin_gaussians_plain(box, grid))
     names = ("tile_start", "tile_items", "entries", "slot", "gauss_start")
+    e = got.num_entries
+
+    def held(k):
+        # the card's entries and slots have room for the bound; the
+        # first e are the bins
+        t = getattr(got, k)
+        return t[:e] if k in ("entries", "slot") else t
     err = float(sum(
-        getattr(got, k).numel() if getattr(got, k).shape
-        != getattr(ref, k).shape
-        else int((getattr(got, k) != getattr(ref, k)).sum().item())
+        held(k).numel() if held(k).shape != getattr(ref, k).shape
+        else int((held(k) != getattr(ref, k)).sum().item())
         for k in names))
+    flags = int(got.flags.item())
+    plain_flags = splat.bin_flags_plain(points, box, grid, got.capacity)
+    err += float(flags != plain_flags)
     stats = got.stats()
-    ms = cuda_ms(lambda: splat.bin_gaussians_cuda(points, box, grid), 10)
-    p, e, t = box.shape[0], stats["entries"], stats["tiles"]
+    ms = cuda_ms(lambda: splat.bin_gaussians_cuda(points, box, grid, cap),
+                 10)
+    p = box.shape[0]
     # each input read once (the boxes, the points for the raster check),
     # each output written once (Gaussian and tile starts, entries, slots)
+    t = stats["tiles"]
     nbytes = p * 24 + points.shape[0] * 12 + ((p + 1) + 2 * e + (t + 1)) * 4
     row = dict(name="splat_bins" + suffix, route="cuda",
                source="gaussianformer_tpu_torch/csrc/splat_bin.cu",
                replaces="gaussianformer_tpu/ops/pallas/splat_kernel.py:343",
                launches=launches["splat_bin"], shape=[points.shape[0], p],
-               **stats, max_abs_err=err, tol=0.0, ms=ms, plain_ms=plain_ms,
+               **stats, capacity=got.capacity, max_abs_err=err, tol=0.0,
+               ms=ms, plain_ms=plain_ms,
                bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
                library_ms=None, report=report)
     log(f"# {row['name']}: {e} entries over {t} tiles of "
-        f"{'x'.join(map(str, splat.TILE))} voxels, COVERS share "
+        f"{'x'.join(map(str, splat.TILE))} voxels (room for "
+        f"{got.capacity}), COVERS share "
         f"{stats['covers_share']:.4f}, list length mean "
-        f"{stats['mean_list']:.1f} max {stats['max_list']}; "
+        f"{stats['mean_list']:.1f} max {stats['max_list']}; flag word "
+        f"{flags} (plain {plain_flags}); "
         f"{err:.0f} elements differ from the plain bins; binning "
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
         f"{row['bound_ms']:.4f} ms (bytes)")
@@ -1742,6 +2009,10 @@ def check_backward(key, call, launches, mods, tag=""):
                                      else "splat_bwd"], shape=[n, p],
                    aabb_pairs=pairs, report=True)
     got = fn(*args)
+    if name == "dcn_bwd":
+        # no float atomics: a second call gives the same bits
+        row["repeat_bit_equal"] = held_repeat(
+            f"deform_conv2d_backward {list(args[0].shape)}", got, fn(*args))
     if name == "splat_bwd":
         # K7 on the forward's bins (as the path runs it) and on its own;
         # twice, as it has no atomics: the same bits each time
@@ -1824,11 +2095,12 @@ def splat_backward_extras(fn, args, kw, got, mods) -> dict:
               for part, bit in (("tile", splat.TILE_LAUNCH),
                                 ("fold", splat.FOLD_LAUNCH))}
     c = args[3].shape[1]
-    work_mb = bins.num_entries * (-(-(10 + c) // 4) * 4) * 4 / 1e6
+    work_mb = bins.capacity * (-(-(10 + c) // 4) * 4) * 4 / 1e6
     log(f"# splat backward: on the forward's bins equal to binning its own "
         f"{same}, a second call bit-equal {repeat}; tile launch "
         f"{launch['tile']:.4f} ms, fold {launch['fold']:.4f} ms; "
-        f"{bins.num_entries} entries, workspace {work_mb:.1f} MB")
+        f"{bins.num_entries} entries, workspace {work_mb:.1f} MB (room "
+        f"for {bins.capacity} entries)")
     if not (same and repeat):
         raise RuntimeError("K7 is not deterministic across its bins or "
                            "calls")
@@ -1894,23 +2166,77 @@ def deformable_backward_extras(fn, args, got, launches, mods,
                 extra_rows=[bins_row])
 
 
+def held_repeat(name, got, again) -> bool:
+    """Raise unless two calls' outputs are the same bits."""
+    same = all(torch_equal(a, b) for a, b in zip(got, again))
+    log(f"# {name}: a second call bit-equal {same}")
+    if not same:
+        raise RuntimeError(f"{name}: a second call gave other bits")
+    return same
+
+
+#: K5's launches, in the order they run (``parts`` bits of the wrapper)
+DCN_BWD_LAUNCHES = ("input", "weight", "om_sum", "fallback_bins", "g_x",
+                    "w_sum")
+
+
+def graph_ms(fn, iters: int = 10) -> float:
+    """The device time of ``fn`` (launches on buffers it does not
+    allocate), by CUDA events around a CUDA graph of ``iters`` calls, so
+    that the host's time to enqueue a small launch does not count."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def dcn_launches(dcn, args, iters: int = 10) -> dict:
-    """K5's two launches' time per call, by CUDA events: the wrapper
-    running only ``input`` (g_x, g_offset, g_mask) or only ``weight``
-    (g_W), its zero fills and casts (about 0.01 ms) included. (A call
-    that launches neither is bound by the host, so it is not subtracted.)"""
-    def ms(parts):
-        return cuda_ms(lambda: dcn.deform_conv2d_backward_cuda(
-            *args, parts=parts), iters)
-    return {"input": ms(dcn.INPUT_LAUNCH), "weight": ms(dcn.WEIGHT_LAUNCH)}
+    """Each of K5's launches' device time per call, run alone on a
+    workspace and outputs that a whole call filled (``graph_ms``): the
+    input launch, the weight launch, the g_offset / g_mask sums over the
+    chunks, the fallback records' bins (seven small launches), g_x and the
+    splits' sum of g_W."""
+    import torch
+    x, weight = args[0], args[3]
+    b, h, w, cin = x.shape
+    cout = weight.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = (torch.empty(b, h, w, cin, **f32), torch.empty(b, h, w, 18, **f32),
+           torch.empty(b, h, w, 9, **f32), torch.empty(9 * cin, cout, **f32))
+    ws = dcn.backward_workspace(x, cout)
+    dcn.deform_conv2d_backward_cuda(*args, workspace=ws, out=out)
+    bits = (dcn.INPUT_LAUNCH, dcn.WEIGHT_LAUNCH, dcn.OM_LAUNCH,
+            dcn.BINS_LAUNCH, dcn.GX_LAUNCH, dcn.WSUM_LAUNCH)
+    return {name: graph_ms(lambda bit=bit: dcn.deform_conv2d_backward_cuda(
+        *args, parts=bit, workspace=ws, out=out), iters)
+        for name, bit in zip(DCN_BWD_LAUNCHES, bits)}
+
+
+def log_launches(launch) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in launch.items())
 
 
 def dcn_backward_extras(fn, args, mods) -> dict:
     """K5's numbers beside its row: the share of in-image corners outside
-    the kernel's shared-memory g_x window (its global-atomic fallback) and
-    each launch's time; at stage 3 also the same with the offsets moved by
-    uniform(-DCN_PERTURB_PX, DCN_PERTURB_PX) pixels, held to the plain
-    version with the row's tolerances."""
+    the kernel's shared-memory g_x window (they become fallback records, as
+    do the corners past a full bucket) and each launch's time; at stage 3
+    also the same with the offsets moved by uniform(-DCN_PERTURB_PX,
+    DCN_PERTURB_PX) pixels, held to the plain version with the row's
+    tolerances and to a second call's bits."""
     import torch
     dcn = mods.dcn
     x, offset, mask, weight, g_out = args
@@ -1918,8 +2244,8 @@ def dcn_backward_extras(fn, args, mods) -> dict:
     launch = dcn_launches(dcn, args)
     extras = dict(window_outside_share=share, launch_ms=launch)
     log(f"# deform_conv2d_backward {list(x.shape)}: {share:.6f} of "
-        f"{corners} in-image corners outside the g_x window; input launch "
-        f"{launch['input']:.4f} ms, weight launch {launch['weight']:.4f} ms")
+        f"{corners} in-image corners outside the g_x window; launches (ms) "
+        f"{log_launches(launch)}")
     if x.shape[-1] != 256:
         return extras
     gen = torch.Generator(device=offset.device).manual_seed(5)
@@ -1928,6 +2254,9 @@ def dcn_backward_extras(fn, args, mods) -> dict:
         ) * DCN_PERTURB_PX
     pargs = (x, moved.contiguous(), mask, weight, g_out)
     got = fn(*pargs)
+    repeat = held_repeat(f"deform_conv2d_backward {list(x.shape)}, offsets "
+                         f"moved by up to {DCN_PERTURB_PX:g} px", got,
+                         fn(*pargs))
     ref = dcn.deform_conv2d_backward_plain(*pargs)
     errors = {k: _max_err(k, gt, rf, tol) for k, gt, rf, tol in zip(
         ("g_x", "g_offset", "g_mask", "g_weight"), got, ref,
@@ -1941,15 +2270,17 @@ def dcn_backward_extras(fn, args, mods) -> dict:
         f"outside the g_x window; "
         + ", ".join(f"{k} {e:.3e} (tol {t:.3e})"
                     for k, (e, t) in errors.items())
-        + f"; kernel {ms:.4f} ms (input {launch['input']:.4f}, weight "
-          f"{launch['weight']:.4f})")
+        + f"; kernel {ms:.4f} ms (launches: {log_launches(launch)})")
     bad = {k: e for k, (e, t) in errors.items() if not e <= t}
     if bad:
         raise RuntimeError(f"deform_conv2d_backward with moved offsets "
                            f"disagrees with its plain version: {bad}")
     extras["moved_offsets"] = dict(
         px=DCN_PERTURB_PX, window_outside_share=share, ms=ms,
-        launch_ms=launch, max_abs_err=max(e for e, _ in errors.values()))
+        launch_ms=launch, max_abs_err=max(e for e, _ in errors.values()),
+        errors={k: {"max_abs_err": e, "tol": t}
+                for k, (e, t) in errors.items()},
+        repeat_bit_equal=repeat)
     return extras
 
 

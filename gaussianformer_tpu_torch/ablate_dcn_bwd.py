@@ -13,7 +13,8 @@ init) and, at stage 3, offsets moved by up to 6 px. The difference between
 two builds is the time of the phase cut between them, as far as the
 compiler schedules the rest alike. Cut builds compute wrong gradients and
 serve only to time. Prints the card's name and power limit and one JSON
-line. Needs a CUDA device and ``nvcc``.
+line. Needs a CUDA device and ``nvcc``. Each launch runs alone on a
+workspace that a whole call of the unchanged build filled.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import subprocess
 
 import torch
 
-from .kernels import _lib
+from .kernels import _lib, dcn
 
 #: the phases, in the order they are cut: (name, source text, its
 #: replacement); each text must occur once in ``csrc/dcn_bwd.cu``
@@ -119,18 +120,22 @@ def main():
                 torch.zeros(b, h, w, 9, device="cuda"),
                 torch.zeros(9 * c, c, device="cuda")]
         stream = P(torch.cuda.current_stream().cuda_stream)
+        ws = dcn.backward_workspace(x, c)
 
         def launch(lib, parts):
             code = lib.gf_dcn_backward_parts(
                 P(x.data_ptr()), P(offset.data_ptr()), 27,
                 P(mask.data_ptr()), 9, P(weight.data_ptr()),
                 P(g_out.data_ptr()), *(P(t.data_ptr()) for t in outs),
-                b, h, w, c, c, parts, stream)
+                P(ws.data_ptr()), b, h, w, c, c, parts, stream)
             if code != 0:
                 raise RuntimeError(f"gf_dcn_backward_parts returned {code}")
+        launch(libs[0][1], dcn.INPUT_GRADS | dcn.WEIGHT_GRADS)
         row = {"shape": [b, h, w, c], "offset_px": px,
-               "weight_ms": _ms(lambda: launch(libs[0][1], 2)),
-               "input_ms": {label: _ms(lambda lib=lib: launch(lib, 1))
+               "weight_ms": _ms(lambda: launch(libs[0][1],
+                                               dcn.WEIGHT_LAUNCH)),
+               "input_ms": {label: _ms(lambda lib=lib: launch(
+                   lib, dcn.INPUT_LAUNCH))
                             for label, lib in libs}}
         rows.append(row)
         print(f"# {row['shape']}, offsets up to {px:g} px: input launch "

@@ -30,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from .kernels import _lib, fps
+from .kernels import _lib, dcn, fps
 
 STAGES = {"stage3": (6, 54, 100, 256, 256), "stage4": (6, 27, 50, 512, 512)}
 FPS_N = 129_600
@@ -52,7 +52,9 @@ def _ms(fn, iters: int, warmup: int = 2) -> float:
 
 def _build_parent(csrc: Path) -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` into a second library, as ``kernels/_lib.py``
-    builds the package's own."""
+    builds the package's own. Its ``gf_dcn_backward`` is bound as the
+    entry point stood before K5 took a workspace (its outputs zeroed by
+    the caller, atomic sums)."""
     so = _lib.BUILD_DIR / "bench_parent" / "libparent.so"
     so.parent.mkdir(parents=True, exist_ok=True)
     _lib._compile_and_link(sorted(csrc.glob("*.cu")), so,
@@ -99,15 +101,23 @@ def _dcn_fwd(lib, x, offset, mask, weight, inv, shift, out):
                          out.shape[-1], stream)
 
 
-def _dcn_bwd(lib, x, offset, mask, weight, g_out, outs):
+def _dcn_bwd(lib, x, offset, mask, weight, g_out, outs, ws=None):
+    """A call of K5: this tree's on its workspace ``ws``, every output
+    written once; a parent's (``ws`` None) with its outputs zeroed first,
+    as its wrapper did."""
     b, h, w, cin = x.shape
     stream = torch.cuda.current_stream().cuda_stream
+    tail = (b, h, w, cin, g_out.shape[-1], stream)
 
     def run():
-        for t in outs:
-            t.zero_()
-        _call(lib, "gf_dcn_backward", x, offset, 27, mask, 27, weight, g_out,
-              *outs, b, h, w, cin, g_out.shape[-1], stream)
+        if ws is None:
+            for t in outs:
+                t.zero_()
+            _call(lib, "gf_dcn_backward", x, offset, 27, mask, 27, weight,
+                  g_out, *outs, *tail)
+        else:
+            _call(lib, "gf_dcn_backward", x, offset, 27, mask, 27, weight,
+                  g_out, *outs, ws, *tail)
     return run
 
 
@@ -137,13 +147,15 @@ def main(argv=None):
                 torch.zeros(b, h, w, 18, **f32),
                 torch.zeros(b, h, w, 9, **f32),
                 torch.zeros(9 * cin, cout, **f32)]
+        ws = dcn.backward_workspace(x, cout)
         row = {"shape": [b, h, w, cin, cout]}
         for who in order:
             lib = libs[who]
             row.setdefault(f"k1_{who}_ms", []).append(_ms(_dcn_fwd(
                 lib, x, offset, mask, weight, inv, shift, out), 50))
             row.setdefault(f"k5_{who}_ms", []).append(_ms(_dcn_bwd(
-                lib, x, offset, mask, weight, g_out, outs), 20))
+                lib, x, offset, mask, weight, g_out, outs,
+                None if who == "parent" else ws), 20))
         xc = x.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         wc = weight.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous(
@@ -153,7 +165,7 @@ def main(argv=None):
         row["bound_ms"] = 2.0 * b * h * w * 9 * cin * cout / 989e12 * 1e3
         result[stage] = row
         print(f"# {stage}: {json.dumps(row)}", flush=True)
-        del x, offset, mask, weight, g_out, out, outs, xc, wc
+        del x, offset, mask, weight, g_out, out, outs, xc, wc, ws
 
     pts = torch.randn(FPS_N, 3, device="cuda", generator=gen) * torch.tensor(
         [25.0, 25.0, 2.0], device="cuda")

@@ -8,8 +8,9 @@ For each of the five shipped configs the full-width model
 (random weights from seed 0, the synthetic batch) runs one frame under
 inference mode and one train step, and the inputs of the splat kernels
 are captured (the last splat of the frame, the first backward of the
-step). Then, on those inputs: the binning alone (``bins_ms``; its first
-call, which ends in the host read, alone ``bins_count_ms``); K4 through
+step). Then, on those inputs, with the bins sized by the path's bound
+(the head's): the binning alone (``bins_ms``, one call with no host read
+but the eager check of its flag word); K4 through
 its wrapper, binning included (``k4_change_ms``, a time a turn), and on
 bins built beforehand (``k4_kernel_ms``); K7 through its wrapper on the
 forward's bins, as the path calls it (``k7_change_ms``), and its two
@@ -211,13 +212,14 @@ def bench_case(tag, k4_args, k4_kw, k7_args, k7_bins, libs, order, iters):
     in turns); returns its row."""
     points, gdata, box, sem_aug, grid, variant = k4_args
     kw = {k: v for k, v in k4_kw.items() if k != "bins"}
-    bins = splat.bin_gaussians_cuda(points, box, grid)
+    cap = k4_kw["bins"].capacity     # the path's bound on the entries
+
+    def binned():
+        return splat.bin_gaussians_cuda(points, box, grid, cap)
+    bins = binned()
     row = dict(case=tag, gaussians=gdata.shape[0],
-               aabb_pairs=_pairs(box, grid), **bins.stats())
-    row["bins_ms"] = _ms(lambda: splat.bin_gaussians_cuda(points, box, grid),
-                         iters)
-    row["bins_count_ms"] = _ms(lambda: splat.bin_counts_cuda(points, box,
-                                                             grid), iters)
+               aabb_pairs=_pairs(box, grid), capacity=cap, **bins.stats())
+    row["bins_ms"] = _ms(binned, iters)
     got4 = splat.splat_accumulate_cuda(*k4_args, **kw)
     row["k4_kernel_ms"] = _ms(lambda: splat.splat_accumulate_cuda(
         *k4_args, **kw, bins=bins), iters)
@@ -227,12 +229,12 @@ def bench_case(tag, k4_args, k4_kw, k7_args, k7_bins, libs, order, iters):
             *k7_args, bins=k7_bins, parts=splat.TILE_LAUNCH), iters)
         row["k7_fold_ms"] = _ms(lambda: splat.splat_backward_cuda(
             *k7_args, bins=k7_bins, parts=splat.FOLD_LAUNCH), iters)
-        row["workspace_mb"] = (k7_bins.num_entries * (
+        row["workspace_mb"] = (k7_bins.capacity * (
             -(-(10 + k7_args[3].shape[1]) // 4) * 4) * 4 / 1e6)
-    runs = {"change": (lambda: splat.splat_accumulate_cuda(*k4_args, **kw),
-                       None if k7_args is None else
-                       (lambda: splat.splat_backward_cuda(*k7_args,
-                                                          bins=k7_bins)))}
+    runs = {"change": (
+        lambda: splat.splat_accumulate_cuda(*k4_args, **kw, bins=binned()),
+        None if k7_args is None else
+        (lambda: splat.splat_backward_cuda(*k7_args, bins=k7_bins)))}
     if "parent" in libs:
         out4, run4 = _parent_k4(libs["parent"], k4_args, kw)
         run4()

@@ -93,27 +93,4 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
   }
 }
 
-// Atomically add v[0..VEC) into the fp32 global array at p (aligned to
-// VEC floats): one vector atomic per 4 (or 2) floats where the toolkit
-// offers them for sm_90 (float2 / float4 atomicAdd, CUDA 12.5 headers),
-// else one scalar atomic per float.
-template <int VEC>
-__device__ __forceinline__ void atomic_add_vec(float* p, const float* v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12050
-  if constexpr (VEC % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < VEC / 4; ++i)
-      atomicAdd(reinterpret_cast<float4*>(p) + i,
-                make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
-                            v[4 * i + 3]));
-    return;
-  } else if constexpr (VEC == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-    return;
-  }
-#endif
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) atomicAdd(p + i, v[i]);
-}
-
 }  // namespace gf

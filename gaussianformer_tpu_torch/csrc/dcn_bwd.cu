@@ -22,8 +22,10 @@
 // g_x written once) are tens of MB. What costs time is moving the 36
 // corner shares of g_x per pixel and channel, and the corner gathers.
 //
-// Design: two launches, counted as one kernel; every MMA is a bf16
+// Design: launches counted as one kernel; every MMA is a bf16
 // mma.sync.m16n8k16 with fp32 sums, fed by ldmatrix from shared memory.
+// No float atomics: every sum runs in a fixed order, so a call gives the
+// same bits every time, for any offset.
 //  1. dcn_bwd_input_kernel (g_x, g_offset, g_mask). A block of 256 threads
 //     owns an 8 x 8 tile of output pixels of one image, NC = 32 input
 //     channels and all 9 taps. Its g_out tile [64, C_out] is copied into
@@ -34,25 +36,28 @@
 //     - pixel pass, a thread per (pixel, 8 channels): the tap's 4 corners,
 //       the g_offset / g_mask dot products (x corners read from shared
 //       memory), and for the corner k == its channel group, an entry (pixel,
-//       m * cw) in that corner's window-cell bucket (slot from an int
-//       shared atomic). A corner in the image but outside the window, or
-//       past a full bucket (CAP entries), adds its shares to the global
-//       g_x with atomicAdd right there: the exact fallback, with no
-//       sampling window and no dropped corner. Corners outside the image
-//       add nothing. The chunks of a pixel live in different blocks, so
-//       g_offset and g_mask are zeroed by the wrapper and each (pixel, tap)
-//       adds its chunk's sums with three atomics.
+//       m * cw) in that corner's window-cell bucket. Its slot is its rank
+//       among the block's entries of the cell in thread order: its rank in
+//       its warp (__match_any_sync) plus the earlier warps' counts, which
+//       each warp's leader for the cell ORs into the cell's word as a
+//       nibble (an int shared atomic; an OR of disjoint nibbles does not
+//       depend on the order). A corner in the image but outside the
+//       window, or past a full bucket (CAP entries), is a fallback record
+//       (target pixel, m * cw) at its source key (p 9 + t) 4 + k, written
+//       by the chunk-0 blocks; the (pixel, tap)'s g_cols row goes to the
+//       gc workspace. Corners outside the image add nothing. Each (pixel,
+//       tap)'s g_offset / g_mask sums over the block's channels go to the
+//       chunk's rows of a workspace.
 //     - owner pass: the g_x WINDOW is the tile plus HALO = 3 pixels on every
 //       side, its first WCELLS = 192 cells in raster order (all but 4 of
 //       the 14 x 14 square; it holds every corner of a sample whose offsets
 //       lie in [-1, 1), and nearly all in [-2, 2)). Each thread owns 3
 //       (cell, 8-channel) pairs, summed in registers over the 9 taps; it
-//       adds its cells' bucket entries, so no window word has two writers
-//       and no float atomics are needed. It runs in the next tap's first
-//       slice, after that slice's MMAs are issued.
-//     At the end each thread adds its window cells in the image to the
-//     global g_x with float4 atomics (all-zero ones skipped): 3 cells per
-//     pixel against 36 corner shares.
+//       adds its cells' bucket entries in slot order, so no window word
+//       has two writers. It runs in the next tap's first slice, after that
+//       slice's MMAs are issued.
+//     At the end each thread writes its window cells in the image to the
+//     block's window in the workspace.
 //     Shared memory (bytes), C_out <= 256: g_out 64 * 264 * 2 = 33,792; W a
 //     whole tap a stage, two stages 2 * 32 * 264 * 2 = 33,792; g_cols
 //     64 * 36 * 4 = 9,216; x under the window 192 * 32 * 2 = 12,288;
@@ -75,10 +80,24 @@
 //     loaded into registers before the current MMAs (their offsets a step
 //     earlier still) and blended into the other A buffer after them; one
 //     barrier a step. The splits fill whole waves of two blocks per SM;
-//     each thread adds its partial tile into the fp32 g_W with float2
-//     atomics.
-// Atomic sums run in a changing order, so g_x, g_offset, g_mask and g_W are
-// not bitwise reproducible; all stay in fp32 (the wrapper casts g_x, g_W).
+//     each block writes its partial tile to its split's g_W in the
+//     workspace.
+//  3. dcn_bwd_om_kernel: each g_offset / g_mask value, the chunks' rows
+//     summed in chunk order.
+//  4. the fallback bins: the records sorted by target pixel with K6's
+//     stable radix sort (bin_sort.cuh), so each pixel's list is in
+//     source-key order, sized by the bound (36 records a pixel) with no
+//     host read; each pixel's first entry (dcn_bwd_start_kernel).
+//  5. dcn_bwd_gx_kernel, a thread per (pixel, 8 channels): the cells of
+//     the (at most 4) windows that hold the pixel, in tile order, then its
+//     fallback list in order, each entry m * cw times its gc row.
+//  6. dcn_bwd_wsum_kernel: g_W, the splits summed in split order.
+// Every output is written once, in fp32 (the wrapper casts g_x and g_W).
+// At the flagship's stage 3 the workspace holds the windows (107 MB), the
+// gc rows (299 MB, written only where a corner falls back), the chunks'
+// g_offset / g_mask rows (28 MB), the records and their bins (36 words a
+// pixel each) and the splits' g_W (104 MB).
+#include "bin_sort.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -102,6 +121,7 @@ constexpr int GC_LD = NC + 4;                 // fp32 pitch of g_cols
 constexpr int WIN_J = WCELLS * (NC / 8) / IN_THREADS;
 static_assert(WIN_J * IN_THREADS == WCELLS * (NC / 8), "whole cells a thread");
 constexpr int SMEM_MAX = 232448;
+constexpr int RECORDS = 36;                   // fallback records a pixel
 static_assert(TP * (NC / 8) == IN_THREADS, "one (pixel, 8 channels) a thread");
 
 // W streams in slices of KS output channels through a ring of two stages
@@ -116,16 +136,32 @@ __host__ __device__ constexpr int in_smem_bytes(int cout) {
          TP * GC_LD * 4 + WCELLS * NC * 2 + WCELLS * CAP * 8 + WCELLS * 4;
 }
 
+// The sum of the eight 4-bit counts of a cell's word (each at most 8).
+__device__ __forceinline__ int nibble_sum(unsigned v) {
+  v = (v & 0x0F0F0F0Fu) + ((v >> 4) & 0x0F0F0F0Fu);
+  return (int)((v * 0x01010101u) >> 24);
+}
+
+// The input launch's outputs, in the workspace: the windows [tiles][WCELLS]
+// [C_in], each chunk's g_offset / g_mask rows [C_in / NC][M][27], the
+// fallback records (target pixel or -1, weight) [M * 36], and the gc rows
+// [M * 9][C_in] of the (pixel, tap)s with a fallback corner.
+struct InputWork {
+  float* win;
+  float* om;
+  int* rec_target;
+  float* rec_weight;
+  float* gc;
+};
+
 template <int KS>
 __global__ void __launch_bounds__(IN_THREADS, 2)
 dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
                      const float* __restrict__ offset, int off_stride,
                      const float* __restrict__ mask, int mask_stride,
                      const __nv_bfloat16* __restrict__ wt,
-                     const __nv_bfloat16* __restrict__ gout,
-                     float* __restrict__ gx, float* __restrict__ goff,
-                     float* __restrict__ gmask, int B, int H, int W, int Cin,
-                     int Cout) {
+                     const __nv_bfloat16* __restrict__ gout, InputWork work,
+                     int B, int H, int W, int Cin, int Cout) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int WS_LD = KS + 8;  // bf16 pitch of a W slice
   const int kpad = in_kpad<KS>(Cout);
@@ -136,9 +172,10 @@ dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
   __nv_bfloat16* s_xwin = reinterpret_cast<__nv_bfloat16*>(s_gc +
                                                            TP * GC_LD);
   // the tap's in-window corner entries, bucketed by window cell: (pixel,
-  // m * cw) pairs and their count
+  // m * cw) pairs, and each warp's count of them as a nibble of the cell's
+  // word
   float2* s_bkt = reinterpret_cast<float2*>(s_xwin + WCELLS * NC);
-  int* s_cnt = reinterpret_cast<int*>(s_bkt + WCELLS * CAP);
+  unsigned* s_cnt = reinterpret_cast<unsigned*>(s_bkt + WCELLS * CAP);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -151,6 +188,7 @@ dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
   const int y0 = ty * TH, x0 = tx * TW;          // tile origin
   const int wy0 = y0 - HALO, wx0 = x0 - HALO;    // window origin
   const int c0 = blockIdx.y * NC;
+  const long M = (long)B * H * W;
 
   // group 0: the g_out tile (zero past the image and C_out) and x under
   // the window (cells outside the image are never read)
@@ -174,7 +212,7 @@ dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
                  x + (((long)b * H + yy) * W + xx) * Cin + c0 + g * 8, true);
   }
   cp_async_commit();
-  for (int i = tid; i < WCELLS; i += IN_THREADS) s_cnt[i] = 0;
+  for (int i = tid; i < WCELLS; i += IN_THREADS) s_cnt[i] = 0u;
 
   // W slices: tap t's kt slices of KS output channels, in order. This
   // thread copies the 16 bytes at column w_col of rows w_r + W_RSTEP j;
@@ -228,15 +266,16 @@ dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
       s_gout + (warp_m * 16 + (lm % 2) * 8 + lr) * go_ld + (lm / 2) * 8;
   const int b_off = (warp_n * 16 + (lm / 2) * 8 + lr) * WS_LD + (lm % 2) * 8;
   // owner pass of a tap: each thread adds its cells' bucketed entries into
-  // its registers (a window cell's 4 groups are 4 lanes of one warp), then
-  // empties the buckets for the next tap. It reads g_cols and the buckets
-  // of the tap before, under the first slice's MMAs of the next.
+  // its registers in slot order (a window cell's 4 groups are 4 lanes of
+  // one warp), then empties the buckets for the next tap. It reads g_cols
+  // and the buckets of the tap before, under the first slice's MMAs of the
+  // next.
   auto owner_pass = [&]() {
     int n[WIN_J], nmax[WIN_J];  // entries of each owned cell; warp max
 #pragma unroll
     for (int j = 0; j < WIN_J; ++j) {
       const int q = tid / (NC / 8) + j * (IN_THREADS / (NC / 8));
-      n[j] = min(s_cnt[q], CAP);
+      n[j] = min(nibble_sum(s_cnt[q]), CAP);
       nmax[j] = __reduce_max_sync(0xffffffffu, n[j]);
     }
     // entry e of every owned cell at once: WIN_J independent chains
@@ -261,7 +300,7 @@ dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < WIN_J; ++j) {
       const int q = tid / (NC / 8) + j * (IN_THREADS / (NC / 8));
-      if (eg == 0) s_cnt[q] = 0;
+      if (eg == 0) s_cnt[q] = 0u;
     }
   };
 
@@ -314,8 +353,8 @@ dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
 
     // pixel pass: the corners of (ep, tap) and the g_offset / g_mask dot
     // products over 8 channels; corner k's entry goes into its cell's
-    // bucket by the thread eg == k, and a corner outside the window (or
-    // whose bucket is full) adds its shares to the global g_x here
+    // bucket by the thread eg == k, or, outside the window or past a full
+    // bucket, becomes a fallback record
     {
       const float sy = (float)(eyy - 1 + tap / 3) + edy;
       const float sx = (float)(exx - 1 + tap % 3) + edx;
@@ -358,9 +397,14 @@ dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
           my_id = cid[k];
         }
       }
-      // this thread's corner takes a bucket slot (its latency hides under
-      // the dot products)
-      const int slot = my_cell >= 0 ? atomicAdd(s_cnt + my_cell, 1) : 0;
+      // this thread's corner's rank among its warp's lanes with its cell,
+      // and the warp's count in the cell's word (its latency hides under
+      // the dot products): a warp holds 8 pixels, each with at most one
+      // corner in a cell
+      const unsigned peers = __match_any_sync(0xffffffffu, my_cell);
+      const int rank = __popc(peers & ((1u << lane) - 1u));
+      if (my_cell >= 0 && rank == 0)
+        atomicOr(s_cnt + my_cell, (unsigned)__popc(peers) << (4 * warp));
       float pm = 0.f, py = 0.f, px = 0.f;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -386,30 +430,29 @@ dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
         py += y4[k] * dot;
         px += x4[k] * dot;
       }
+      __syncthreads();  // every warp's count is in its cells' words
+      // the slot: the rank in the warp plus the earlier warps' counts
+      bool fallback = my_cell == -2;
       if (my_cell >= 0) {
-        if (slot < CAP) {
+        const int slot =
+            rank + nibble_sum(s_cnt[my_cell] & ((1u << (4 * warp)) - 1u));
+        if (slot < CAP)
           s_bkt[my_cell * CAP + slot] =
               make_float2(__int_as_float(ep), my_w);
-        } else {  // a full bucket: this thread adds all NC channels
-          for (int e = 0; e < NC; e += 4) {
-            const float4 u = *reinterpret_cast<const float4*>(
-                s_gc + ep * GC_LD + e);
-            const float share[4] = {my_w * u.x, my_w * u.y, my_w * u.z,
-                                    my_w * u.w};
-            gf::atomic_add_vec<4>(gx + (long)my_id * Cin + c0 + e, share);
-          }
-        }
+        else
+          fallback = true;
       }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (cell[k] == -2) {  // the exact fallback
-          float share[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) share[e] = emk * w4[k] * gc[e];
-          gf::atomic_add_vec<8>(gx + (long)cid[k] * Cin + c0 + eg * 8,
-                                share);
-        }
+      if (blockIdx.y == 0 && elive) {
+        const long src = (em * 9 + tap) * 4 + eg;  // the source key
+        work.rec_target[src] = fallback ? my_id : -1;
+        work.rec_weight[src] = my_w;
       }
+      // the (pixel, tap)'s g_cols row, where any of its corners falls back
+      int any = fallback;
+      any |= __shfl_xor_sync(0xffffffffu, any, 1);
+      any |= __shfl_xor_sync(0xffffffffu, any, 2);
+      if (any && elive)
+        store_vec<8>(work.gc + (em * 9 + tap) * Cin + c0 + eg * 8, gc);
 #pragma unroll
       for (int sh = 1; sh < NC / 8; sh <<= 1) {
         pm += __shfl_xor_sync(0xffffffffu, pm, sh);
@@ -417,27 +460,26 @@ dcn_bwd_input_kernel(const __nv_bfloat16* __restrict__ x,
         px += __shfl_xor_sync(0xffffffffu, px, sh);
       }
       if (elive && eg == 0) {
-        atomicAdd(goff + em * 18 + 2 * tap, emk * py);
-        atomicAdd(goff + em * 18 + 2 * tap + 1, emk * px);
-        atomicAdd(gmask + em * 9 + tap, pm);
+        float* o = work.om + ((long)blockIdx.y * M + em) * 27 + tap * 3;
+        o[0] = emk * py;
+        o[1] = emk * px;
+        o[2] = pm;
       }
     }
     ++tap;
   }
   __syncthreads();
   owner_pass();
-  // the window into the global g_x, once per cell in the image
+  // the window's cells in the image into the block's window of the
+  // workspace (the g_x launch sums each pixel's windows)
 #pragma unroll
   for (int j = 0; j < WIN_J; ++j) {
     const int q = tid / (NC / 8) + j * (IN_THREADS / (NC / 8));
     const int yy = wy0 + q / WW, xx = wx0 + q % WW;
     if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-    bool any = false;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) any |= win[j][e] != 0.f;
-    if (any)
-      gf::atomic_add_vec<8>(
-          gx + (((long)b * H + yy) * W + xx) * Cin + c0 + eg * 8, win[j]);
+    store_vec<8>(
+        work.win + ((long)blockIdx.x * WCELLS + q) * Cin + c0 + eg * 8,
+        win[j]);
   }
 }
 
@@ -456,7 +498,7 @@ dcn_bwd_weight_kernel(const __nv_bfloat16* __restrict__ x,
                       const float* __restrict__ offset, int off_stride,
                       const float* __restrict__ mask, int mask_stride,
                       const __nv_bfloat16* __restrict__ gout,
-                      float* __restrict__ gw, int B, int H, int W, int Cin,
+                      float* __restrict__ wsum, int B, int H, int W, int Cin,
                       int Cout, int pix_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -566,7 +608,8 @@ dcn_bwd_weight_kernel(const __nv_bfloat16* __restrict__ x,
       sample_store(smp, s_a + (buf ^ 1) * WK * WA_LD + sp * WA_LD + sg * 8);
   }
 
-  // the partial tile into g_W, two floats an atomic
+  // the partial tile into its split's g_W
+  float* part = wsum + (long)blockIdx.z * 9 * Cin * Cout;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -574,18 +617,151 @@ dcn_bwd_weight_kernel(const __nv_bfloat16* __restrict__ x,
       const int col = n0 + warp_n * 64 + j * 8 + 2 * (lane % 4);
       if (col >= Cout) continue;
       const long row = tap * Cin + c0 + warp_m * 32 + i * 16 + lane / 4;
-      gf::atomic_add_vec<2>(gw + row * Cout + col, acc[i][j]);
-      gf::atomic_add_vec<2>(gw + (row + 8) * Cout + col, acc[i][j] + 2);
+      *reinterpret_cast<float2*>(part + row * Cout + col) =
+          make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(part + (row + 8) * Cout + col) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
     }
+}
+
+// ---- 3. g_offset and g_mask -----------------------------------------------
+// A thread per (pixel, tap, value): the chunks' rows summed in chunk order.
+__global__ void __launch_bounds__(256)
+dcn_bwd_om_kernel(const float* __restrict__ om, int chunks, long M,
+                  float* __restrict__ goff, float* __restrict__ gmask) {
+  const long i = (long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= M * 27) return;
+  float s = om[i];
+  for (int ch = 1; ch < chunks; ++ch) s += om[ch * M * 27 + i];
+  const long m = i / 27;
+  const int r = (int)(i - m * 27), tap = r / 3;
+  if (r % 3 < 2)
+    goff[m * 18 + 2 * tap + r % 3] = s;
+  else
+    gmask[m * 9 + tap] = s;
+}
+
+// ---- 4. the fallback bins -------------------------------------------------
+constexpr int SORT_ITEMS = 8;     // items a lane loads at once
+constexpr int SORT_MAX_BITS = 10;
+constexpr int SORT_MAX_BLOCKS = 1024;
+constexpr int SORT_ITEMS_PER_BLOCK = 4096;
+
+// The items of a sort pass: the records 0..n in order (vals null) or the
+// records vals[0..n), each keyed by its target pixel (valid when >= 0).
+struct RecordItems {
+  const int* target;
+  const int* vals;
+
+  template <class F>
+  __device__ __forceinline__ void walk(long lo, long hi, int*, F&& f) const {
+    const int lane = threadIdx.x & 31;
+    for (long c = lo; c < hi; c += 32 * SORT_ITEMS) {
+      int v[SORT_ITEMS], k[SORT_ITEMS];
+#pragma unroll
+      for (int j = 0; j < SORT_ITEMS; ++j) {
+        const long e = c + 32 * j + lane;
+        v[j] = e < hi ? (vals != nullptr ? __ldcs(vals + e) : (int)e) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < SORT_ITEMS; ++j)
+        k[j] = c + 32 * j + lane < hi ? target[v[j]] : -1;
+#pragma unroll
+      for (int j = 0; j < SORT_ITEMS; ++j) f(k[j] >= 0, k[j], v[j]);
+    }
+  }
+};
+
+// start[p] for p in [0, npix]: the first sorted record whose target is
+// >= p (a binary search).
+__global__ void dcn_bwd_start_kernel(const int* __restrict__ entries,
+                                     const int* __restrict__ total,
+                                     const int* __restrict__ target,
+                                     int npix, int* __restrict__ start) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p > npix) return;
+  int lo = 0, hi = *total;
+  while (lo < hi) {
+    const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+    if (target[entries[mid]] < p)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  start[p] = lo;
+}
+
+// ---- 5. g_x ---------------------------------------------------------------
+// A thread per (pixel, 8 channels): the cells of the windows that hold the
+// pixel, tile after tile in order, then its fallback list in order.
+__global__ void __launch_bounds__(256)
+dcn_bwd_gx_kernel(const float* __restrict__ win, const int* __restrict__ start,
+                  const int* __restrict__ entries,
+                  const float* __restrict__ rec_weight,
+                  const float* __restrict__ gc, int B, int H, int W, int Cin,
+                  float* __restrict__ gx) {
+  const int G = Cin / 8;
+  const long i = (long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long)B * H * W * G) return;
+  const long m = i / G;
+  const int g = (int)(i - m * G);
+  const int x = (int)(m % W), y = (int)((m / W) % H);
+  const int b = (int)(m / ((long)W * H));
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  // the tiles whose window rows hold y: t TH - HALO <= y <= t TH + TH - 1 +
+  // HALO (and columns x alike)
+  const int ay = y - (TH - 1 + HALO), ax = x - (TW - 1 + HALO);
+  const int ty0 = ay > 0 ? (ay + TH - 1) / TH : 0;
+  const int tx0 = ax > 0 ? (ax + TW - 1) / TW : 0;
+  const int ty1 = min(tiles_y - 1, (y + HALO) / TH);
+  const int tx1 = min(tiles_x - 1, (x + HALO) / TW);
+  float acc[8] = {};
+  for (int ty = ty0; ty <= ty1; ++ty)
+    for (int tx = tx0; tx <= tx1; ++tx) {
+      const int cell = (y - ty * TH + HALO) * WW + (x - tx * TW + HALO);
+      if (cell >= WCELLS) continue;
+      const long tile = ((long)b * tiles_y + ty) * tiles_x + tx;
+      float v[8];
+      load_vec<8>(win + (tile * WCELLS + cell) * Cin + g * 8, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] += v[e];
+    }
+  const int e1 = start[m + 1];
+  for (int e = start[m]; e < e1; ++e) {
+    const int src = entries[e];
+    const float w = rec_weight[src];
+    float v[8];
+    load_vec<8>(gc + (long)(src >> 2) * Cin + g * 8, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] += w * v[k];
+  }
+  store_vec<8>(gx + m * Cin + g * 8, acc);
+}
+
+// ---- 6. g_W ---------------------------------------------------------------
+// A thread per 4 floats of g_W: the splits summed in split order.
+__global__ void __launch_bounds__(256)
+dcn_bwd_wsum_kernel(const float4* __restrict__ parts, int splits, long n4,
+                    float4* __restrict__ gw) {
+  const long i = (long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n4) return;
+  float4 s = parts[i];
+  for (int sp = 1; sp < splits; ++sp) {
+    const float4 v = parts[sp * n4 + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  gw[i] = s;
 }
 
 template <int KS>
 cudaError_t launch_input(dim3 grid, cudaStream_t st, const void* x,
                          const void* offset, int off_stride, const void* mask,
                          int mask_stride, const void* weight,
-                         const void* g_out, void* g_x, void* g_offset,
-                         void* g_mask, int B, int H, int W, int Cin,
-                         int Cout) {
+                         const void* g_out, const InputWork& work, int B,
+                         int H, int W, int Cin, int Cout) {
   const auto kernel = dcn_bwd_input_kernel<KS>;
   const int smem = in_smem_bytes<KS>(Cout);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
@@ -599,61 +775,23 @@ cudaError_t launch_input(dim3 grid, cudaStream_t st, const void* x,
   kernel<<<grid, IN_THREADS, smem, st>>>(
       (const __nv_bfloat16*)x, (const float*)offset, off_stride,
       (const float*)mask, mask_stride, (const __nv_bfloat16*)weight,
-      (const __nv_bfloat16*)g_out, (float*)g_x, (float*)g_offset,
-      (float*)g_mask, B, H, W, Cin, Cout);
+      (const __nv_bfloat16*)g_out, work, B, H, W, Cin, Cout);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x [B, H, W, Cin] bf16; offset / mask as for gf_dcn_forward (pixel rows of
-// off_stride / mask_stride floats); weight [9 * Cin, Cout] bf16; g_out
-// [B, H, W, Cout] bf16. Outputs, all fp32 and zeroed by the caller (atomic
-// sums): g_x [B, H, W, Cin], g_offset [B, H, W, 18], g_mask [B, H, W, 9],
-// g_w [9 * Cin, Cout]. Requires Cin % 64 == 0, Cout % 8 == 0, Cout <= 512.
-// `parts` selects the launches: 1 the input gradients, 2 the weight
-// gradient (gf_dcn_backward runs both; one alone serves to time it).
-GF_EXPORT int gf_dcn_backward_parts(const void* x, const void* offset,
-                                    int off_stride, const void* mask,
-                                    int mask_stride, const void* weight,
-                                    const void* g_out, void* g_x,
-                                    void* g_offset, void* g_mask, void* g_w,
-                                    int B, int H, int W, int Cin, int Cout,
-                                    int parts, void* stream) {
-  if (Cin % 64 != 0 || Cout % 8 != 0 || Cout > 512) return -1;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long M = (long)B * H * W;
-  if (M == 0) return 0;
-  if (M > (1L << 30)) return -1;  // 32-bit pixel indices
-  cudaError_t err;
-  const long tiles = (long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-  dim3 grid_in((unsigned)tiles, (unsigned)(Cin / NC));
-  // W slices of a whole tap up to C_out 256, of 128 channels up to 512:
-  // either way two blocks fit on an SM
-  if (!(parts & 1))
-    err = cudaSuccess;
-  else if (Cout <= 256)
-    err = launch_input<256>(grid_in, st, x, offset, off_stride, mask,
-                            mask_stride, weight, g_out, g_x, g_offset,
-                            g_mask, B, H, W, Cin, Cout);
-  else
-    err = launch_input<128>(grid_in, st, x, offset, off_stride, mask,
-                            mask_stride, weight, g_out, g_x, g_offset,
-                            g_mask, B, H, W, Cin, Cout);
-  if (err != cudaSuccess) return (int)err;
-  if (!(parts & 2)) return 0;
-
+// The weight launch's split of the pixels: whole waves of two blocks per
+// SM, of W_WAVES to 2 W_WAVES waves the count whose last wave is fullest.
+cudaError_t weight_splits(long M, int Cin, int Cout, long* splits,
+                          long* per_split) {
   int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
+  cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  // split the pixels into whole waves of two blocks per SM: of W_WAVES to
-  // 2 W_WAVES waves, the count whose last wave is fullest
+  if (err != cudaSuccess) return err;
   const long base = 9L * (Cin / WM) * ((Cout + WN - 1) / WN);
   const long steps = (M + WK - 1) / WK;
   const long slots = 2L * sms;
-  long splits = 1;
+  long sp_best = 1;
   double best = -1.0;
   for (long waves = W_WAVES; waves <= 2 * W_WAVES; ++waves) {
     const long sp = waves * slots / base;
@@ -661,27 +799,192 @@ GF_EXPORT int gf_dcn_backward_parts(const void* x, const void* offset,
     const double fill = (double)(sp * base) / (double)(waves * slots);
     if (fill > best + 1e-9) {
       best = fill;
-      splits = sp;
+      sp_best = sp;
     }
   }
-  splits = splits > steps ? steps : splits;
-  const long per_split = ((steps + splits - 1) / splits) * WK;
-  dim3 grid_w((unsigned)(9 * (Cin / WM)), (unsigned)((Cout + WN - 1) / WN),
-              (unsigned)((M + per_split - 1) / per_split));
-  dcn_bwd_weight_kernel<<<grid_w, THREADS, W_SMEM, st>>>(
-      (const __nv_bfloat16*)x, (const float*)offset, off_stride,
-      (const float*)mask, mask_stride, (const __nv_bfloat16*)g_out,
-      (float*)g_w, B, H, W, Cin, Cout, (int)per_split);
-  return (int)cudaGetLastError();
+  sp_best = sp_best > steps ? steps : sp_best;
+  *per_split = ((steps + sp_best - 1) / sp_best) * WK;
+  *splits = (M + *per_split - 1) / *per_split;
+  return cudaSuccess;
+}
+
+// A call's launches and its workspace's parts (offsets in 4-byte words,
+// each at a multiple of 64 words).
+struct Plan {
+  long M, tiles, records, splits, per_split;
+  int passes, bits[2], sort_blocks;
+  long win, om, rec_target, rec_weight, gc, entries, start, sort, wsum;
+  long words;
+};
+
+// -1 for an unsupported shape, else 0 (or a cudaError_t)
+int plan_of(int B, int H, int W, int Cin, int Cout, Plan* pl) {
+  if (B < 0 || H < 0 || W < 0 || Cin < 64 || Cin % 64 != 0 || Cout < 8 ||
+      Cout % 8 != 0 || Cout > 512)
+    return -1;
+  const long M = (long)B * H * W;
+  // 32-bit record keys; at most 2^20 target pixels (two 10-bit passes)
+  if (M * RECORDS >= (1L << 31) || M > (1L << (2 * SORT_MAX_BITS)))
+    return -1;
+  pl->M = M;
+  pl->tiles = (long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  pl->records = M * RECORDS;
+  pl->splits = pl->per_split = 0;
+  if (M > 0) {
+    const cudaError_t err =
+        weight_splits(M, Cin, Cout, &pl->splits, &pl->per_split);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int nbits = 1;
+  while ((1L << nbits) < M) ++nbits;
+  pl->passes = nbits > SORT_MAX_BITS ? 2 : 1;
+  pl->bits[0] = pl->passes == 2 ? (nbits + 1) / 2 : nbits;
+  pl->bits[1] = nbits - pl->bits[0];
+  const long blocks =
+      (pl->records + SORT_ITEMS_PER_BLOCK - 1) / SORT_ITEMS_PER_BLOCK;
+  pl->sort_blocks = (int)(blocks < 1 ? 1
+                          : (blocks > SORT_MAX_BLOCKS ? SORT_MAX_BLOCKS
+                                                      : blocks));
+  long off = 0;
+  auto take = [&off](long words) {
+    const long at = off;
+    off += (words + 63) / 64 * 64;
+    return at;
+  };
+  pl->win = take(pl->tiles * WCELLS * Cin);
+  pl->om = take((long)(Cin / NC) * M * 27);
+  pl->rec_target = take(pl->records);
+  pl->rec_weight = take(pl->records);
+  pl->gc = take(M * 9 * Cin);
+  pl->entries = take(pl->records);
+  pl->start = take(M + 1);
+  pl->sort = take(gf::binsort::work_words(pl->records, pl->sort_blocks,
+                                          pl->bits[0]));
+  pl->wsum = take(pl->splits * 9 * Cin * Cout);
+  pl->words = off;
+  return 0;
+}
+
+}  // namespace
+
+// The sizes of a call on x [B, H, W, Cin] -> C_out: out[0] the 4-byte words
+// of its workspace, out[1] the weight launch's splits, out[2] the bound of
+// its fallback records (36 a pixel). Returns -1 for an unsupported shape.
+GF_EXPORT int gf_dcn_backward_sizes(int B, int H, int W, int Cin, int Cout,
+                                    long long* out) {
+  Plan pl;
+  const int err = plan_of(B, H, W, Cin, Cout, &pl);
+  if (err) return err;
+  out[0] = pl.words;
+  out[1] = pl.splits;
+  out[2] = pl.records;
+  return 0;
+}
+
+// x [B, H, W, Cin] bf16; offset / mask as for gf_dcn_forward (pixel rows of
+// off_stride / mask_stride floats); weight [9 * Cin, Cout] bf16; g_out
+// [B, H, W, Cout] bf16; ws: the workspace (gf_dcn_backward_sizes' words,
+// 256-byte aligned). Outputs, all fp32, each element written once: g_x
+// [B, H, W, Cin], g_offset [B, H, W, 18], g_mask [B, H, W, 9], g_w
+// [9 * Cin, Cout]. Requires Cin % 64 == 0, Cout % 8 == 0, Cout <= 512.
+// `parts` selects the launches (bits, in the order they run): 1 the input
+// launch, 2 the weight launch, 4 the g_offset / g_mask sums, 8 the
+// fallback bins, 16 g_x, 32 the splits' sum of g_W (gf_dcn_backward runs
+// them all; one alone, on a workspace that a whole call filled, serves to
+// time it). No host read, no allocation.
+GF_EXPORT int gf_dcn_backward_parts(const void* x, const void* offset,
+                                    int off_stride, const void* mask,
+                                    int mask_stride, const void* weight,
+                                    const void* g_out, void* g_x,
+                                    void* g_offset, void* g_mask, void* g_w,
+                                    void* ws, int B, int H, int W, int Cin,
+                                    int Cout, int parts, void* stream) {
+  Plan pl;
+  const int bad = plan_of(B, H, W, Cin, Cout, &pl);
+  if (bad) return bad;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long M = pl.M;
+  if (M == 0) return 0;
+  float* wsf = (float*)ws;
+  int* wsi = (int*)ws;
+  const InputWork work{wsf + pl.win, wsf + pl.om, wsi + pl.rec_target,
+                       wsf + pl.rec_weight, wsf + pl.gc};
+  int* entries = wsi + pl.entries;
+  int* start = wsi + pl.start;
+  cudaError_t err = cudaSuccess;
+  if (parts & 1) {
+    // W slices of a whole tap up to C_out 256, of 128 channels up to 512:
+    // either way two blocks fit on an SM
+    const dim3 grid_in((unsigned)pl.tiles, (unsigned)(Cin / NC));
+    err = Cout <= 256
+              ? launch_input<256>(grid_in, st, x, offset, off_stride, mask,
+                                  mask_stride, weight, g_out, work, B, H, W,
+                                  Cin, Cout)
+              : launch_input<128>(grid_in, st, x, offset, off_stride, mask,
+                                  mask_stride, weight, g_out, work, B, H, W,
+                                  Cin, Cout);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 2) {
+    const dim3 grid_w((unsigned)(9 * (Cin / WM)),
+                      (unsigned)((Cout + WN - 1) / WN), (unsigned)pl.splits);
+    dcn_bwd_weight_kernel<<<grid_w, THREADS, W_SMEM, st>>>(
+        (const __nv_bfloat16*)x, (const float*)offset, off_stride,
+        (const float*)mask, mask_stride, (const __nv_bfloat16*)g_out,
+        wsf + pl.wsum, B, H, W, Cin, Cout, (int)pl.per_split);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 4) {
+    dcn_bwd_om_kernel<<<(unsigned)((M * 27 + 255) / 256), 256, 0, st>>>(
+        work.om, Cin / NC, M, (float*)g_offset, (float*)g_mask);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 8) {
+    const gf::binsort::Work wk = gf::binsort::work_of(
+        wsi + pl.sort, pl.records, pl.sort_blocks, pl.bits[0]);
+    const bool two = pl.passes == 2;
+    const RecordItems first{work.rec_target, nullptr};
+    int e = gf::binsort::sort_pass(first, nullptr, pl.records, 0,
+                                   pl.bits[0], pl.sort_blocks, wk, wk.total,
+                                   two ? wk.vals0 : entries, st);
+    if (e) return e;
+    if (two) {
+      const RecordItems second{work.rec_target, wk.vals0};
+      e = gf::binsort::sort_pass(second, wk.total, 0, pl.bits[0],
+                                 pl.bits[1], pl.sort_blocks, wk, nullptr,
+                                 entries, st);
+      if (e) return e;
+    }
+    dcn_bwd_start_kernel<<<(unsigned)((M + 1 + 255) / 256), 256, 0, st>>>(
+        entries, wk.total, work.rec_target, (int)M, start);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 16) {
+    dcn_bwd_gx_kernel<<<(unsigned)((M * (Cin / 8) + 255) / 256), 256, 0,
+                        st>>>(work.win, start, entries, work.rec_weight,
+                              work.gc, B, H, W, Cin, (float*)g_x);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 32) {
+    const long n4 = 9L * Cin * Cout / 4;
+    dcn_bwd_wsum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
+        (const float4*)(wsf + pl.wsum), (int)pl.splits, n4, (float4*)g_w);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 GF_EXPORT int gf_dcn_backward(const void* x, const void* offset,
                               int off_stride, const void* mask,
                               int mask_stride, const void* weight,
                               const void* g_out, void* g_x, void* g_offset,
-                              void* g_mask, void* g_w, int B, int H, int W,
-                              int Cin, int Cout, void* stream) {
+                              void* g_mask, void* g_w, void* ws, int B,
+                              int H, int W, int Cin, int Cout, void* stream) {
   return gf_dcn_backward_parts(x, offset, off_stride, mask, mask_stride,
-                               weight, g_out, g_x, g_offset, g_mask, g_w, B,
-                               H, W, Cin, Cout, 3, stream);
+                               weight, g_out, g_x, g_offset, g_mask, g_w, ws,
+                               B, H, W, Cin, Cout, 63, stream);
 }

@@ -18,9 +18,9 @@
 // (a key is recomputed from its entry's (u, v)), so that the places a
 // pass writes (4 bytes an entry) stay in the L2 until they are whole.
 //
-// A stable LSD radix sort by key, with the counting sort's ranking of
-// bin_rank.cuh (no atomic decides an order), in one or two passes of at
-// most MAX_BITS bits (keys below 2^20). The first pass walks the pairs in
+// A stable LSD radix sort by key (bin_sort.cuh, with the counting sort's
+// ranking of bin_rank.cuh: no atomic decides an order), in one or two
+// passes of at most MAX_BITS bits (keys below 2^20). The first pass walks the pairs in
 // order: a warp loads 4 x 32 pairs' (u, v), one ballot a 32 finds the
 // in-image ones, and their 4 L corner slots are spread over the lanes, so
 // the entries are generated in sample order without being stored first;
@@ -37,7 +37,7 @@
 //
 // Bound on the H100: bytes, and the launches' latency at these sizes (the
 // points, and a few int32 words an entry each pass).
-#include "bin_rank.cuh"
+#include "bin_sort.cuh"
 #include "deformable.cuh"
 
 namespace {
@@ -45,9 +45,7 @@ namespace {
 using gf::deform::MAX_LEVELS;
 using gf::deform::pick;
 
-constexpr int WARPS = 8;
 constexpr int MAX_BITS = 10;
-constexpr int COLUMN_WARPS = 8;
 constexpr int PAIRS_PER_BLOCK = 512;
 constexpr int MAX_BLOCKS = 1024;
 constexpr int CHUNKS = 4;          // pass 1: chunks of 32 pairs loaded at once
@@ -161,110 +159,6 @@ struct EntryItems {
   }
 };
 
-// The block's and the warp's equal parts of n items in order.
-__device__ __forceinline__ void warp_range(long n, long* lo, long* hi) {
-  const long b0 = n * blockIdx.x / gridDim.x;
-  const long b1 = n * (blockIdx.x + 1) / gridDim.x;
-  const int warp = threadIdx.x >> 5;
-  *lo = b0 + (b1 - b0) * warp / WARPS;
-  *hi = b0 + (b1 - b0) * (warp + 1) / WARPS;
-}
-
-// Per block and warp, its items of each digit: wcount[block][warp][digit],
-// and the block's: hist[digit][block]. n: the items (*total where given).
-template <class Items>
-__global__ void __launch_bounds__(WARPS * 32)
-bin_count_kernel(Items items, const int* __restrict__ total, long n,
-                 int shift, int T, int* __restrict__ wcount,
-                 int* __restrict__ hist) {
-  extern __shared__ int s_wc[];   // [WARPS][T]
-  __shared__ int s_lane[WARPS][32];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  if (total != nullptr) n = *total;
-  for (int i = tid; i < WARPS * T; i += WARPS * 32) s_wc[i] = 0;
-  __syncthreads();
-  long lo, hi;
-  warp_range(n, &lo, &hi);
-  int* wc = s_wc + warp * T;
-  // a count does not depend on the order: shared int atomics
-  items.walk(lo, hi, s_lane[warp], [&](bool valid, int key, int) {
-    if (valid) atomicAdd(&wc[(key >> shift) & (T - 1)], 1);
-  });
-  __syncthreads();
-  int* mine = wcount + (long)blockIdx.x * WARPS * T;
-  for (int i = tid; i < WARPS * T; i += WARPS * 32) mine[i] = s_wc[i];
-  for (int t = tid; t < T; t += WARPS * 32) {
-    int sum = 0;
-    for (int w = 0; w < WARPS; ++w) sum += s_wc[w * T + t];
-    hist[(long)t * gridDim.x + blockIdx.x] = sum;
-  }
-}
-
-// A warp a digit: hist[digit][0, blocks) scanned in place (each block's
-// first place among the digit's items), the digit's total to dtot[digit].
-__global__ void __launch_bounds__(COLUMN_WARPS * 32)
-bin_columns_kernel(int* __restrict__ hist, int blocks, int T,
-                   int* __restrict__ dtot) {
-  const int t = blockIdx.x * COLUMN_WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (t >= T) return;   // the whole warp
-  int* h = hist + (long)t * blocks;
-  int carry = 0;
-  for (int b0 = 0; b0 < blocks; b0 += 32) {
-    const int v = b0 + lane < blocks ? h[b0 + lane] : 0;
-    int incl = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += u;
-    }
-    if (b0 + lane < blocks) h[b0 + lane] = carry + incl - v;
-    carry += __shfl_sync(0xffffffffu, incl, 31);
-  }
-  if (lane == 0) dtot[t] = carry;
-}
-
-// Per block, each item to its place: the digit's first place (the earlier
-// digits' totals) + the earlier blocks' and warps' items of the digit +
-// its rank in its warp. Block 0 stores the total where `total` is given.
-template <class Items>
-__global__ void __launch_bounds__(WARPS * 32)
-bin_place_kernel(Items items, const int* __restrict__ n_total, long n,
-                 int shift, int T, const int* __restrict__ wcount,
-                 const int* __restrict__ hist, const int* __restrict__ dtot,
-                 int* __restrict__ total, int* __restrict__ out) {
-  extern __shared__ int s_wc[];   // [WARPS][T]
-  __shared__ int s_lane[WARPS][32];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  if (n_total != nullptr) n = *n_total;
-  // the digits' first places: a run of T / threads digits a thread
-  const int per = (T + WARPS * 32 - 1) / (WARPS * 32);
-  const int t0 = min(tid * per, T), t1 = min(t0 + per, T);
-  int sum = 0;
-  for (int t = t0; t < t1; ++t) sum += dtot[t];
-  int run = gf::binrank::block_exclusive_sum(sum);
-  const int* mine = wcount + (long)blockIdx.x * WARPS * T;
-  for (int t = t0; t < t1; ++t) {
-    int r = run + hist[(long)t * gridDim.x + blockIdx.x];
-    run += dtot[t];
-    for (int w = 0; w < WARPS; ++w) {
-      s_wc[w * T + t] = r;
-      r += mine[w * T + t];
-    }
-  }
-  if (total != nullptr && blockIdx.x == 0 && tid == WARPS * 32 - 1)
-    *total = run;   // the last thread's run ends at the total
-  __syncthreads();
-  long lo, hi;
-  warp_range(n, &lo, &hi);
-  int* wc = s_wc + warp * T;
-  items.walk(lo, hi, s_lane[warp], [&](bool valid, int key, int val) {
-    const int pos =
-        gf::binrank::place_round(valid, (key >> shift) & (T - 1), wc);
-    if (pos >= 0) out[pos] = val;
-  });
-}
-
 // pixel_start[p] for p in [0, npix]: the first sorted entry whose key is
 // >= p (a binary search, each probe's key recomputed).
 __global__ void bin_pixel_start_kernel(const int* __restrict__ entries,
@@ -319,41 +213,8 @@ int plan_of(const int* heights, const int* widths, int L, int B, int Q,
   long blocks = (pl->npair + PAIRS_PER_BLOCK - 1) / PAIRS_PER_BLOCK;
   pl->blocks = (int)(blocks < 1 ? 1 : (blocks > MAX_BLOCKS ? MAX_BLOCKS
                                                            : blocks));
-  // the first pass's entries, the per-warp and per-block counts, the
-  // digits' totals, the total
-  const long T = 1L << MAX_BITS;
-  pl->ws_words = pl->emax + (long)pl->blocks * (WARPS + 1) * T + T + 1;
+  pl->ws_words = gf::binsort::work_words(pl->emax, pl->blocks, MAX_BITS);
   return 0;
-}
-
-struct Work {
-  int *vals0, *wcount, *hist, *dtot, *total;
-};
-
-Work work_of(void* ws, const Plan& pl) {
-  Work w;
-  w.vals0 = (int*)ws;
-  w.wcount = w.vals0 + pl.emax;
-  w.hist = w.wcount + (long)pl.blocks * WARPS * (1 << MAX_BITS);
-  w.dtot = w.hist + (long)pl.blocks * (1 << MAX_BITS);
-  w.total = w.dtot + (1 << MAX_BITS);
-  return w;
-}
-
-template <class Items>
-int sort_pass(const Items& items, const int* n_total, long n, int shift,
-              int bits, const Plan& pl, const Work& wk, int* total,
-              int* out, cudaStream_t st) {
-  const int T = 1 << bits;
-  const size_t smem = (size_t)WARPS * T * sizeof(int);
-  bin_count_kernel<Items><<<pl.blocks, WARPS * 32, smem, st>>>(
-      items, n_total, n, shift, T, wk.wcount, wk.hist);
-  bin_columns_kernel<<<(T + COLUMN_WARPS - 1) / COLUMN_WARPS,
-                       COLUMN_WARPS * 32, 0, st>>>(wk.hist, pl.blocks, T,
-                                                   wk.dtot);
-  bin_place_kernel<Items><<<pl.blocks, WARPS * 32, smem, st>>>(
-      items, n_total, n, shift, T, wk.wcount, wk.hist, wk.dtot, total, out);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -386,17 +247,20 @@ GF_EXPORT int gf_deformable_bin(const int* heights, const int* widths,
   Plan pl;
   if (plan_of(heights, widths, num_levels, B, Q, cams, &pl)) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  const Work wk = work_of(ws, pl);
+  const gf::binsort::Work wk =
+      gf::binsort::work_of(ws, pl.emax, pl.blocks, MAX_BITS);
   const bool two = pl.passes == 2;
   PairItems first{(const float*)pts, pl.sh};
   int* out = (int*)entries;
-  int err = sort_pass(first, nullptr, pl.npair, 0, pl.bits[0], pl, wk,
-                      wk.total, two ? wk.vals0 : out, st);
+  int err = gf::binsort::sort_pass(first, nullptr, pl.npair, 0, pl.bits[0],
+                                   pl.blocks, wk, wk.total,
+                                   two ? wk.vals0 : out, st);
   if (err) return err;
   if (two) {
     EntryItems second{wk.vals0, (const float*)pts, pl.sh};
-    err = sort_pass(second, wk.total, 0, pl.bits[0], pl.bits[1], pl, wk,
-                    nullptr, out, st);
+    err = gf::binsort::sort_pass(second, wk.total, 0, pl.bits[0],
+                                 pl.bits[1], pl.blocks, wk, nullptr, out,
+                                 st);
     if (err) return err;
   }
   bin_pixel_start_kernel<<<(pl.npix + 1 + 255) / 256, 256, 0, st>>>(

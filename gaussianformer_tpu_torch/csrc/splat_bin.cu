@@ -9,19 +9,21 @@
 //           each Gaussian it needs.
 //
 // The reference CUDA's preprocess -> scan -> duplicate -> sort, with a
-// stable counting sort by tile in place of its radix sort, in two calls.
-// The Gaussians go in blocks of GBLOCK (by index).
-// gf_splat_bin_count, which ends in the binning's one host read:
+// stable counting sort by tile in place of its radix sort, in one call with
+// no host read: the arrays are sized by a bound on the entries that the
+// caller gives (the shapes' and the boxes' radius bound), and the launches
+// read the entry total on the device. The Gaussians go in blocks of GBLOCK
+// (by index).
 //   1. count: per Gaussian, the number of tiles its clipped box meets, and
 //      per block their sum; in the same launch, per point, whether the
-//      points are the raster grid;
-//   2. offsets (one block): the blocks' sums scanned; the entry total and
-//      the raster flag are copied to the host.
-// gf_splat_bin_build:
+//      points are the raster grid (bit 1 of the flag word);
+//   2. offsets (one block): the blocks' sums scanned, and the total;
 //   3. expand: each Gaussian's range of entries (its block's offset + the
 //      counts before it in the block); its (tile, entry) pairs written
 //      there, tiles in raster order (the Gaussian-major order); per block,
-//      its entries of each tile;
+//      its entries of each tile. A total above the bound sets bit 2 of the
+//      flag word and leaves the bins empty (no Gaussian has an entry), so
+//      that no launch writes or reads past the arrays;
 //   4. columns: per tile, the blocks' counts scanned in block order;
 //   5. tiles (one block): the tiles' starts, and the splat kernels' work
 //      items: the tiles by descending list length (ties by index), so that
@@ -51,6 +53,8 @@ constexpr int GBLOCK = 256;        // Gaussians a block of count and expand
 constexpr int PLACE_WARPS = 8;
 constexpr int SCAN_THREADS = 1024;
 constexpr int MAX_TILES = 4096;
+constexpr int FLAG_NOT_RASTER = 1;   // bits of the flag word
+constexpr int FLAG_OVER_BOUND = 2;
 
 __device__ __forceinline__ int tiles_met(const int* __restrict__ b, int GH,
                                          int GW, int GD) {
@@ -66,7 +70,7 @@ __device__ __forceinline__ int tiles_met(const int* __restrict__ b, int GH,
   return cnt;
 }
 
-// meta [blocks + 2]: each block's sum of counts at [block]; the raster flag
+// meta [blocks + 2]: each block's sum of counts at [block]; the flag word
 // at [blocks + 1], zeroed by the caller.
 __global__ void __launch_bounds__(GBLOCK)
 bin_count_kernel(const float* __restrict__ pts, int N,
@@ -101,7 +105,8 @@ bin_count_kernel(const float* __restrict__ pts, int N,
       const int v = (int)floorf((pts[3 * i + a] - pc[a]) / gs);
       iv[a] = min(max(v, 0), dims[a] - 1);
     }
-    if (((long)iv[0] * GW + iv[1]) * GD + iv[2] != i) meta[blocks + 1] = 1;
+    if (((long)iv[0] * GW + iv[1]) * GD + iv[2] != i)
+      atomicOr(meta + blocks + 1, FLAG_NOT_RASTER);
   }
 }
 
@@ -125,19 +130,22 @@ bin_offsets_kernel(int* __restrict__ meta, int blocks) {
 
 // Per block of GBLOCK Gaussians: their entries (keys: the tile, vals: the
 // Gaussian with COVERS) and gauss_start; hist[t][block], the block's
-// entries of tile t.
+// entries of tile t. Over the bound `cap`, the flag and empty bins.
 __global__ void __launch_bounds__(GBLOCK)
 bin_expand_kernel(const int* __restrict__ box, int P, int GH, int GW, int GD,
-                  int T, const int* __restrict__ counts,
-                  const int* __restrict__ offsets,
-                  int* __restrict__ gauss_start, int* __restrict__ keys,
-                  int* __restrict__ vals, int* __restrict__ hist) {
+                  int T, long cap, const int* __restrict__ counts,
+                  int* __restrict__ meta, int* __restrict__ gauss_start,
+                  int* __restrict__ keys, int* __restrict__ vals,
+                  int* __restrict__ hist) {
   extern __shared__ int s_hist[];   // [T]
   const int blocks = gridDim.x;
+  const bool over = meta[blocks] > cap;
+  if (over && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicOr(meta + blocks + 1, FLAG_OVER_BOUND);
   for (int t = threadIdx.x; t < T; t += GBLOCK) s_hist[t] = 0;
   const int g = blockIdx.x * GBLOCK + threadIdx.x;
-  const int cnt = g < P ? counts[g] : 0;
-  int k = offsets[blockIdx.x] + block_exclusive_sum(cnt);
+  const int cnt = g < P && !over ? counts[g] : 0;
+  int k = (over ? 0 : meta[blockIdx.x]) + block_exclusive_sum(cnt);
   if (g < P) gauss_start[g] = k;
   if (g == P - 1) gauss_start[P] = k + cnt;
   if (cnt > 0) {
@@ -195,12 +203,14 @@ bin_columns_kernel(int* __restrict__ hist, int blocks, int T,
 // One block: tile_start [T + 1] (the tiles' totals scanned in place) and
 // the work items (items [2 T + 1]): item = 4 t + (0 whole, 1 first half,
 // 2 second half); items[2 T] counts them, and the rest of items is -1.
+// The entry total E is meta[blocks] (0 over the bound).
 __global__ void __launch_bounds__(SCAN_THREADS)
-bin_tiles_kernel(int T, int E, int* __restrict__ tile_start,
-                 int* __restrict__ items) {
+bin_tiles_kernel(int T, const int* __restrict__ meta, int blocks, long cap,
+                 int* __restrict__ tile_start, int* __restrict__ items) {
   extern __shared__ int s_start[];   // [T + 1], then the tile of each rank
   int* s_by_rank = s_start + T + 1;
   const int tid = threadIdx.x;
+  const int E = meta[blocks] > cap ? 0 : meta[blocks];
   // a run of `per` consecutive tiles (or ranks) a thread
   const int per = (T + SCAN_THREADS - 1) / SCAN_THREADS;
   const int t0 = min(tid * per, T), t1 = min(t0 + per, T);
@@ -250,10 +260,11 @@ bin_tiles_kernel(int T, int E, int* __restrict__ tile_start,
 }
 
 // Per block of GBLOCK Gaussians, a warp for each eighth of their entries
-// in order: each entry's place in the tile-major list.
+// in order: each entry's place in the tile-major list (none over the
+// bound).
 __global__ void __launch_bounds__(PLACE_WARPS * 32)
 bin_place_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
-                 int T, const int* __restrict__ offsets,
+                 int T, long cap, const int* __restrict__ offsets,
                  const int* __restrict__ hist,
                  const int* __restrict__ tile_start,
                  int* __restrict__ entries, int* __restrict__ slot) {
@@ -261,6 +272,7 @@ bin_place_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int blocks = gridDim.x;
+  if (offsets[blocks] > cap) return;   // the whole block
   for (int i = tid; i < PLACE_WARPS * T; i += PLACE_WARPS * 32) s_wc[i] = 0;
   __syncthreads();
   int* wc = s_wc + warp * T;
@@ -309,21 +321,42 @@ GF_EXPORT void gf_splat_tile_dims(int* out) {
   out[3] = GBLOCK;
 }
 
+// The int32 words of a binning's scratch (ws) and of its meta array for P
+// Gaussians on a grid of T tiles and `cap` entries at most: out[0] ws,
+// out[1] meta. Returns -1 for more than 4096 tiles.
+GF_EXPORT int gf_splat_bin_sizes(int P, int GH, int GW, int GD, long long cap,
+                                 long long* out) {
+  const int T = tiles_of(GH, GW, GD);
+  if (T > MAX_TILES) return -1;
+  const long blocks = (P + GBLOCK - 1) / GBLOCK;
+  out[0] = 2 * cap + (long)T * blocks;
+  out[1] = blocks + 2;
+  return 0;
+}
+
 // pts [N, 3] fp32; box [P, 6] int32 (voxel lo xyz, hi xyz); pc_min: 3 host
-// floats; voxel grid (GH, GW, GD) of edge `gs`. Writes counts [P] int32
-// (the tiles each Gaussian's clipped box meets) and meta, an int32 scratch
-// of ceil(P / 256) + 2 words (the blocks' first entries, then the total),
-// then reads the entry total to *total (the host), -1 unless point i lies
-// in voxel i of the raster order for every i < N. Synchronises the stream.
-// Returns a cudaError_t.
-GF_EXPORT int gf_splat_bin_count(const void* pts, int N, const void* box,
-                                 int P, const float* pc_min, float gs,
-                                 int GH, int GW, int GD, void* counts,
-                                 void* meta, int* total, void* stream) {
+// floats; voxel grid (GH, GW, GD) of edge `gs`; cap: the most entries the
+// arrays hold (at most 2^31 - 1). Scratch: counts [P], meta and ws
+// (gf_splat_bin_sizes). Writes gauss_start [P + 1], entries [cap], slot
+// [cap] (the first tile_start[T] of each are the bins), tile_start [T + 1]
+// and tile_items [2 T + 1] int32 (T, the tiles of the grid; the items as
+// bin_tiles_kernel makes them), and the flag word meta[ceil(P / 256) + 1]:
+// bit 1 unless point i lies in voxel i of the raster order for every
+// i < N, bit 2 when the entries pass `cap` (the bins are then empty).
+// Launches on `stream`, no host read. Returns a cudaError_t, or -1 for
+// more than 4096 tiles.
+GF_EXPORT int gf_splat_bin(const void* pts, int N, const void* box, int P,
+                           const float* pc_min, float gs, int GH, int GW,
+                           int GD, long long cap, void* counts, void* meta,
+                           void* ws, void* gauss_start, void* entries,
+                           void* slot, void* tile_start, void* tile_items,
+                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int T = tiles_of(GH, GW, GD);
+  if (T > MAX_TILES || cap < 0 || cap >= (1LL << 31)) return -1;
   const int blocks = (P + GBLOCK - 1) / GBLOCK;
   int* m = (int*)meta;
-  cudaError_t err = cudaMemsetAsync(m + blocks + 1, 0, sizeof(int), st);
+  cudaError_t err = cudaMemsetAsync(m + blocks, 0, 2 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   const long n = P > N ? P : N;
   const int grid = n > 0 ? (int)((n + GBLOCK - 1) / GBLOCK) : 1;
@@ -331,42 +364,17 @@ GF_EXPORT int gf_splat_bin_count(const void* pts, int N, const void* box,
       (const float*)pts, N, (const int*)box, P, pc_min[0], pc_min[1],
       pc_min[2], gs, GH, GW, GD, (int*)counts, m);
   bin_offsets_kernel<<<1, SCAN_THREADS, 0, st>>>(m, blocks);
-  int host[2];
-  err = cudaMemcpyAsync(host, m + blocks, sizeof(host),
-                        cudaMemcpyDeviceToHost, st);
-  if (err == cudaSuccess) err = cudaStreamSynchronize(st);
-  if (err != cudaSuccess) return (int)err;
-  *total = host[1] ? -1 : host[0];
-  return (int)cudaGetLastError();
-}
-
-// The rest of the binning, after gf_splat_bin_count (its counts and meta,
-// and the entry total E): ws, an int32 scratch of 2 E + T ceil(P / 256)
-// words. Writes gauss_start [P + 1], entries [E], slot [E], tile_start
-// [T + 1] and tile_items [2 T + 1] int32 (T, the tiles of the grid; the
-// items as bin_tiles_kernel makes them). Returns a cudaError_t, or -1 for
-// more than 4096 tiles.
-GF_EXPORT int gf_splat_bin_build(const void* box, int P, int GH, int GW,
-                                 int GD, const void* counts, const void* meta,
-                                 int E, void* ws, void* gauss_start,
-                                 void* entries, void* slot, void* tile_start,
-                                 void* tile_items, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int T = tiles_of(GH, GW, GD);
-  if (T > MAX_TILES) return -1;
-  const int blocks = (P + GBLOCK - 1) / GBLOCK;
   int* keys = (int*)ws;
-  int* vals = keys + E;
-  int* hist = vals + E;
-  const int* offsets = (const int*)meta;
+  int* vals = keys + cap;
+  int* hist = vals + cap;
   const size_t place_smem = (size_t)PLACE_WARPS * T * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      bin_place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)place_smem);
+  err = cudaFuncSetAttribute(bin_place_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)place_smem);
   if (err != cudaSuccess) return (int)err;
   if (blocks > 0) {
     bin_expand_kernel<<<blocks, GBLOCK, T * sizeof(int), st>>>(
-        (const int*)box, P, GH, GW, GD, T, (const int*)counts, offsets,
+        (const int*)box, P, GH, GW, GD, T, (long)cap, (const int*)counts, m,
         (int*)gauss_start, keys, vals, hist);
     bin_columns_kernel<<<(T + 7) / 8, 256, 0, st>>>(hist, blocks, T,
                                                     (int*)tile_start);
@@ -377,10 +385,10 @@ GF_EXPORT int gf_splat_bin_build(const void* box, int P, int GH, int GW,
     if (err != cudaSuccess) return (int)err;
   }
   bin_tiles_kernel<<<1, SCAN_THREADS, (2 * T + 1) * sizeof(int), st>>>(
-      T, E, (int*)tile_start, (int*)tile_items);
-  if (E > 0)
+      T, m, blocks, (long)cap, (int*)tile_start, (int*)tile_items);
+  if (blocks > 0)
     bin_place_kernel<<<blocks, PLACE_WARPS * 32, place_smem, st>>>(
-        keys, vals, T, offsets, hist, (const int*)tile_start,
+        keys, vals, T, (long)cap, m, hist, (const int*)tile_start,
         (int*)entries, (int*)slot);
   return (int)cudaGetLastError();
 }

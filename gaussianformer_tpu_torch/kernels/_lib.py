@@ -153,12 +153,15 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.gf_splat_forward.argtypes = [P, P, P, P, I, I, I, I, P, P, P,
                                     P, P, P, I, F, I, P]
     so.gf_splat_forward.restype = I
-    so.gf_dcn_backward.argtypes = [P, P, I, P, I, P, P, P, P, P, P,
+    so.gf_dcn_backward.argtypes = [P, P, I, P, I, P, P, P, P, P, P, P,
                                    I, I, I, I, I, P]
     so.gf_dcn_backward.restype = I
     so.gf_dcn_backward_parts.argtypes = [P, P, I, P, I, P, P, P, P, P, P,
-                                         I, I, I, I, I, I, P]
+                                         P, I, I, I, I, I, I, P]
     so.gf_dcn_backward_parts.restype = I
+    so.gf_dcn_backward_sizes.argtypes = [I, I, I, I, I,
+                                         ctypes.POINTER(ctypes.c_longlong)]
+    so.gf_dcn_backward_sizes.restype = I
     so.gf_deformable_backward.argtypes = [
         ctypes.POINTER(P), ctypes.POINTER(P), ctypes.POINTER(I),
         ctypes.POINTER(I), I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
@@ -183,12 +186,12 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.gf_splat_backward_additive.restype = I
     so.gf_splat_tile_dims.argtypes = [ctypes.POINTER(I)]
     so.gf_splat_tile_dims.restype = None
-    so.gf_splat_bin_count.argtypes = [P, I, P, I, ctypes.POINTER(F), F, I, I,
-                                      I, P, P, ctypes.POINTER(I), P]
-    so.gf_splat_bin_count.restype = I
-    so.gf_splat_bin_build.argtypes = [P, I, I, I, I, P, P, I, P, P, P, P, P,
-                                      P, P]
-    so.gf_splat_bin_build.restype = I
+    L = ctypes.c_longlong
+    so.gf_splat_bin_sizes.argtypes = [I, I, I, I, L, ctypes.POINTER(L)]
+    so.gf_splat_bin_sizes.restype = I
+    so.gf_splat_bin.argtypes = [P, I, P, I, ctypes.POINTER(F), F, I, I, I, L,
+                                P, P, P, P, P, P, P, P, P]
+    so.gf_splat_bin.restype = I
     return so
 
 

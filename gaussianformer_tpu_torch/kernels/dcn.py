@@ -16,6 +16,8 @@ fuses the frozen BN that follows the conv, and its ReLU.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _lib
@@ -24,11 +26,17 @@ from . import _lib
 #: its TH, TW, HALO and WCELLS): a block owns a TILE_H x TILE_W tile of
 #: output pixels and sums g_x on chip over the first WINDOW_CELLS cells, in
 #: raster order, of the tile and WINDOW_HALO pixels around it; other
-#: corners in the image take global atomics
+#: corners in the image become fallback records
 TILE_H, TILE_W, WINDOW_HALO, WINDOW_CELLS = 8, 8, 3, 192
-#: K5's two launches, as ``parts`` bits of
-#: :func:`deform_conv2d_backward_cuda`
-INPUT_LAUNCH, WEIGHT_LAUNCH = 1, 2
+#: K5's launches, as ``parts`` bits of :func:`deform_conv2d_backward_cuda`
+#: in the order they run: the input launch, the weight launch, the g_offset
+#: / g_mask sums over the channel chunks, the fallback records' bins, g_x
+#: (each pixel's windows and fallback list), g_W (the splits' sum)
+(INPUT_LAUNCH, WEIGHT_LAUNCH, OM_LAUNCH, BINS_LAUNCH, GX_LAUNCH,
+ WSUM_LAUNCH) = 1, 2, 4, 8, 16, 32
+#: the launches that make g_x, g_offset and g_mask, those that make g_W
+INPUT_GRADS = INPUT_LAUNCH | OM_LAUNCH | BINS_LAUNCH | GX_LAUNCH
+WEIGHT_GRADS = WEIGHT_LAUNCH | WSUM_LAUNCH
 
 
 def deform_conv2d_plain(x, offset, mask, weight, epilogue=None,
@@ -153,13 +161,36 @@ def deform_conv2d_backward_plain(x, offset, mask, weight, g_out):
     return g_x.to(x.dtype), g_off, g_mask, g_w.to(weight.dtype)
 
 
+def backward_sizes(b, h, w, cin, cout) -> tuple:
+    """K5's (workspace words, the weight launch's splits, the fallback
+    records' bound) for x [b, h, w, cin] -> cout (``gf_dcn_backward_sizes``;
+    the splits follow the card's SM count)."""
+    out = (ctypes.c_longlong * 3)()
+    _lib.check(_lib.lib().gf_dcn_backward_sizes(b, h, w, cin, cout, out),
+               "deform_conv2d_backward")
+    return tuple(out)
+
+
+def backward_workspace(x, cout):
+    """A workspace for K5 on ``x`` -> ``cout`` channels (4-byte words)."""
+    b, h, w, cin = x.shape
+    return torch.empty(backward_sizes(b, h, w, cin, cout)[0],
+                       dtype=torch.int32, device=x.device)
+
+
 def deform_conv2d_backward_cuda(x, offset, mask, weight, g_out,
-                                parts=INPUT_LAUNCH | WEIGHT_LAUNCH):
+                                parts=INPUT_GRADS | WEIGHT_GRADS,
+                                workspace=None, out=None):
     """Launch ``csrc/dcn_bwd.cu``: bf16 ``x``, ``weight`` and ``g_out``
     (C_out up to 512); returns g_x and g_weight in bf16 (summed in fp32),
-    g_offset and g_mask in fp32. ``parts`` selects the launches (the
-    gradients of one left out stay zero), so that each can be timed
-    alone."""
+    g_offset and g_mask in fp32, the same bits on every call. ``parts``
+    selects the launches (a gradient whose last launch is left out comes
+    back zero), so that each can be timed alone on a ``workspace``
+    (:func:`backward_workspace`) that a whole call filled; by default the
+    call allocates its own. ``out``: the four fp32 outputs (g_x
+    [B, H, W, C_in], g_offset, g_mask, g_weight [9 C_in, C_out]) to write
+    and return as they are, so that a launch is timed with no allocation
+    or cast."""
     name = "deform_conv2d_backward"
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
@@ -179,18 +210,44 @@ def deform_conv2d_backward_cuda(x, offset, mask, weight, g_out,
     s_off = _pixel_stride(name, "offset", offset, b, h, w, 18)
     s_mask = _pixel_stride(name, "mask", mask, b, h, w, 9)
     f32 = dict(dtype=torch.float32, device=x.device)
-    g_x = torch.zeros(b, h, w, cin, **f32)
-    g_w = torch.zeros(9 * cin, cout, **f32)
-    g_offset = torch.zeros(b, h, w, 18, **f32)
-    g_mask = torch.zeros(b, h, w, 9, **f32)
+
+    def alloc(shape, launch):
+        # written whole by its launch, zero where that launch is left out
+        return (torch.empty if parts & launch else torch.zeros)(shape, **f32)
+    if out is None:
+        g_x, g_offset, g_mask, g_w = (
+            alloc((b, h, w, cin), GX_LAUNCH), alloc((b, h, w, 18), OM_LAUNCH),
+            alloc((b, h, w, 9), OM_LAUNCH),
+            alloc((9 * cin, cout), WSUM_LAUNCH))
+    else:
+        g_x, g_offset, g_mask, g_w = out
+        _lib.require_cuda(name, g_x=g_x, g_offset=g_offset, g_mask=g_mask,
+                          g_w=g_w)
+        for key, t, shape in (("g_x", g_x, (b, h, w, cin)),
+                              ("g_offset", g_offset, (b, h, w, 18)),
+                              ("g_mask", g_mask, (b, h, w, 9)),
+                              ("g_w", g_w, (9 * cin, cout))):
+            _lib.require_dtype(name, key, t, torch.float32)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: out {key} has shape "
+                                 f"{tuple(t.shape)}, expected {shape}")
+    if workspace is None:
+        workspace = backward_workspace(x, cout)
+    elif (workspace.numel() * workspace.element_size()
+          < 4 * backward_sizes(b, h, w, cin, cout)[0]):
+        raise ValueError(f"{name}: the workspace is too small")
+    _lib.require_cuda(name, x=x, workspace=workspace)
     code = _lib.lib().gf_dcn_backward_parts(
         x.data_ptr(), offset.data_ptr(), s_off, mask.data_ptr(), s_mask,
         weight.data_ptr(), g_out.data_ptr(), g_x.data_ptr(),
         g_offset.data_ptr(), g_mask.data_ptr(), g_w.data_ptr(),
-        b, h, w, cin, cout, parts, _lib.stream_ptr(x))
+        workspace.data_ptr(), b, h, w, cin, cout, parts,
+        _lib.stream_ptr(x))
     _lib.check(code, name)
     if parts:
         _lib.LAUNCHES["dcn_bwd"] += 1
+    if out is not None:
+        return out
     return (g_x.to(x.dtype), g_offset, g_mask,
             g_w.reshape(weight.shape).to(weight.dtype))
 
@@ -206,8 +263,9 @@ def deform_conv2d_backward(x, offset, mask, weight, g_out):
 def window_outside_share(offset) -> tuple[float, int]:
     """Of the bilinear corners inside the image that the samples of
     ``offset`` [B, H, W, 18] reach, the share that lies outside the g_x
-    window of the output pixel's tile (and so takes the backward kernel's
-    global-atomic fallback), and the count of corners in the image."""
+    window of the output pixel's tile (and so becomes one of the backward
+    kernel's fallback records, as do the corners past a full bucket), and
+    the count of corners in the image."""
     b, h, w, _ = offset.shape
     dev = offset.device
     off = offset.detach().float().reshape(b, h, w, 9, 2)

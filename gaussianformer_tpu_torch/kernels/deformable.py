@@ -28,6 +28,7 @@ import dataclasses
 
 import torch
 
+from ..device import constant
 from . import _lib
 
 
@@ -260,8 +261,7 @@ def feature_grads_from_bins_plain(feature_maps, points_2d, weights,
     corner, sample = e & 3, e >> 2
     lvl, pair = sample % levels, sample // levels
     uv = points_2d.reshape(-1, 2)[pair]
-    shapes = torch.tensor(bins.level_shapes, dtype=torch.float32,
-                          device=e.device)[lvl]
+    shapes = constant(bins.level_shapes, torch.float32, e.device)[lvl]
     h_im = uv[:, 1] * shapes[:, 0] - 0.5
     w_im = uv[:, 0] * shapes[:, 1] - 0.5
     lh, lw = h_im - torch.floor(h_im), w_im - torch.floor(w_im)

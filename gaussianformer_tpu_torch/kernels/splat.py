@@ -31,7 +31,11 @@ Both kernels take the points as the raster voxel grid and the Gaussians
 binned by voxel tile (:class:`SplatBins`, built on the card by
 ``csrc/splat_bin.cu`` through :func:`bin_gaussians_cuda`; plain version
 :func:`bin_gaussians_plain`). The forward builds the bins, the autograd
-function keeps them for the backward.
+function keeps them for the backward. The card's bins are sized by a bound
+(:func:`entries_bound`) and read nothing back to the host while a CUDA
+graph is captured: their flag word (points not the raster grid, entries
+past the bound) is then checked after a replay
+(:func:`check_deferred_flags`), and at once in an eager call.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import math
 
 import torch
 
+from ..device import constant
 from . import _lib
 
 
@@ -52,9 +57,8 @@ def postprocess_prob(acc, one_minus):
     prob_sum = acc[:, c]
     covered = prob_sum > 1e-9
     denom = torch.where(covered, prob_sum, torch.ones_like(prob_sum))
-    uniform = torch.full((c,), 1.0 / (c - 1), dtype=acc.dtype,
-                         device=acc.device)
-    uniform[c - 1] = 0.0
+    uniform = constant((1.0 / (c - 1),) * (c - 1) + (0.0,), acc.dtype,
+                       acc.device)
     logits = torch.where(covered[:, None], acc[:, :c] / denom[:, None],
                          uniform)
     return logits, 1.0 - one_minus, acc[:, c + 1]
@@ -167,27 +171,37 @@ class SplatBins:
     each: the tiles by descending list length (ties by index), a tile whose
     list is longer than twice the mean as two halves; item = 4 t + (0 the
     whole tile, 1 / 2 a half); ``tile_items[2 T]`` counts them, the rest is
-    -1."""
+    -1. On the card ``entries`` and ``slot`` hold the bound of
+    :func:`entries_bound` (their first ``tile_start[-1]`` are the bins) and
+    ``flags`` [1] int32 the binning's flag word (:data:`NOT_RASTER`,
+    :data:`OVER_BOUND`); the plain bins hold the entries alone."""
     tile_start: torch.Tensor
     tile_items: torch.Tensor
     entries: torch.Tensor
     slot: torch.Tensor
     gauss_start: torch.Tensor
     grid_dims: tuple
+    flags: torch.Tensor = None
 
     @property
     def num_entries(self) -> int:
+        """The entries' total (a host read on the card)."""
+        return int(self.tile_start[-1].item())
+
+    @property
+    def capacity(self) -> int:
+        """The entries the arrays hold room for."""
         return self.entries.shape[0]
 
     def gaussians(self):
-        return self.entries & 0x7FFFFFFF
+        return self.entries[:self.num_entries] & 0x7FFFFFFF
 
     def covers(self):
-        return self.entries < 0
+        return self.entries[:self.num_entries] < 0
 
     def stats(self) -> dict:
         """Entries, the COVERS share and the tiles' mean and largest list
-        lengths (a host read)."""
+        lengths (host reads)."""
         lengths = (self.tile_start[1:] - self.tile_start[:-1]).float()
         e = self.num_entries
         return dict(entries=e, tiles=lengths.numel(),
@@ -220,20 +234,30 @@ def _work_items(tile_start):
     return torch.cat([items, pad, items.new_tensor([items.shape[0]])])
 
 
-def bin_gaussians_plain(box, grid) -> SplatBins:
-    """The bins of :class:`SplatBins` by plain tensor operations (each box
-    clipped to the grid, its tiles enumerated, a stable sort by tile)."""
+def _tile_extents(box, grid):
+    """Per box [P, 6], its clipped lower tile [P, 3] and the tiles it meets
+    along each axis [P, 3] (0 where it misses the grid)."""
     dev = box.device
-    dims = torch.tensor([grid.H, grid.W, grid.D], device=dev)
-    tile = torch.tensor(TILE, device=dev)
-    nt = tile_counts(grid)
+    dims = constant((grid.H, grid.W, grid.D), torch.int64, dev)
+    tile = constant(TILE, torch.int64, dev)
     b = box.long()
     lo = b[:, :3].clamp_min(0)
     hi = torch.minimum(b[:, 3:], dims - 1)
     meets = (lo <= hi).all(-1)
     tlo = lo // tile
-    ext = torch.where(meets[:, None], hi // tile - tlo + 1,
-                      torch.zeros_like(tlo))
+    return tlo, torch.where(meets[:, None], hi // tile - tlo + 1,
+                            torch.zeros_like(tlo))
+
+
+def bin_gaussians_plain(box, grid) -> SplatBins:
+    """The bins of :class:`SplatBins` by plain tensor operations (each box
+    clipped to the grid, its tiles enumerated, a stable sort by tile)."""
+    dev = box.device
+    dims = constant((grid.H, grid.W, grid.D), torch.int64, dev)
+    tile = constant(TILE, torch.int64, dev)
+    nt = tile_counts(grid)
+    b = box.long()
+    tlo, ext = _tile_extents(box, grid)
     count = ext.prod(-1)
     gauss_start = torch.cat([count.new_zeros(1), count.cumsum(0)])
     g = torch.repeat_interleave(torch.arange(b.shape[0], device=dev), count)
@@ -256,11 +280,75 @@ def bin_gaussians_plain(box, grid) -> SplatBins:
                      (grid.H, grid.W, grid.D))
 
 
-def bin_counts_cuda(points, box, grid):
-    """The binning's first call: (counts [P], meta, the entry total), the
-    total read to the host (the binning's one host read, which
-    synchronises the stream). Raises ``ValueError`` unless the points are
-    the raster voxel grid."""
+#: bits of the binning's flag word: the points are not the raster voxel
+#: grid; the entries passed the bound (the bins are then empty)
+NOT_RASTER, OVER_BOUND = 1, 2
+#: the flag words of bins built while a CUDA graph was being captured, which
+#: no host read checked (:func:`check_deferred_flags` reads them)
+DEFERRED_FLAGS = []
+
+
+def entries_bound(p: int, grid, max_radius=None, whole: int = 0) -> int:
+    """The most entries the bins of ``p`` Gaussians can hold on ``grid``:
+    every tile for each when ``max_radius`` is None; else the tiles a box of
+    that radius (in voxels, on every axis) can meet, and every tile for the
+    last ``whole`` of them (the v1 head's empty Gaussian)."""
+    nt = tile_counts(grid)
+    every = nt[0] * nt[1] * nt[2]
+    if max_radius is None:
+        return p * every
+    per = math.prod(min(-(-2 * max_radius // t) + 1, n)
+                    for t, n in zip(TILE, nt))
+    return min((p - whole) * per + whole * every, p * every)
+
+
+def bin_flags_plain(points, box, grid, max_entries=None) -> int:
+    """The flag word of ``csrc/splat_bin.cu``'s binning by plain tensor
+    operations: :data:`NOT_RASTER` unless point i lies in voxel i of the
+    raster order (x slowest) for every i, :data:`OVER_BOUND` when the boxes
+    meet more tiles than ``max_entries`` (by default the bound of any
+    boxes)."""
+    vox = grid.voxelize(points)
+    lin = (vox[:, 0] * grid.W + vox[:, 1]) * grid.D + vox[:, 2]
+    raster = torch.equal(lin, torch.arange(points.shape[0],
+                                           device=points.device))
+    cap = entries_bound(box.shape[0], grid)
+    if max_entries is not None:
+        cap = min(cap, max_entries)
+    over = bin_gaussians_plain(box, grid).num_entries > cap
+    return (0 if raster else NOT_RASTER) | (OVER_BOUND if over else 0)
+
+
+def check_flags(flags, name="splat_bins"):
+    """Raise for a binning's flag word (a host read)."""
+    bits = int(flags.item())
+    if bits & NOT_RASTER:
+        raise ValueError(f"{name}: points are not the voxel grid in raster "
+                         f"order")
+    if bits & OVER_BOUND:
+        raise ValueError(f"{name}: the boxes met more tiles than the bound "
+                         f"the bins were sized by")
+
+
+def check_deferred_flags():
+    """Check the flag words of the bins built during a CUDA graph's capture
+    (after a replay, which rewrote them; a host read). The capturer empties
+    :data:`DEFERRED_FLAGS` before its capture."""
+    for flags in DEFERRED_FLAGS:
+        check_flags(flags)
+
+
+def bin_gaussians_cuda(points, box, grid, max_entries=None) -> SplatBins:
+    """Launch ``csrc/splat_bin.cu`` in one call with no host read: count
+    each box's tiles (and check that the points are the raster voxel grid,
+    one per voxel, x slowest), scan, expand, sort stably by tile (a
+    counting sort) and make the work items, into arrays of ``max_entries``
+    entries (:func:`entries_bound`). Without it an eager call sizes them
+    by the boxes' own tiles (one host read) and a capture by every tile
+    for every box. The flag word is read at once in an eager call, which
+    raises ``ValueError`` for other points or for boxes past the bound;
+    during a CUDA graph's capture it joins :data:`DEFERRED_FLAGS`. Grids of
+    more than 4096 tiles are not taken."""
     name = "splat_bins"
     _lib.require_cuda(name, points=points, box=box)
     _lib.require_dtype(name, "points", points, torch.float32)
@@ -271,50 +359,44 @@ def bin_counts_cuda(points, box, grid):
     if points.shape != (grid.num_voxels, 3):
         raise ValueError(f"{name}: points are not the {grid.H}x{grid.W}x"
                          f"{grid.D} voxel grid")
-    i32 = dict(dtype=torch.int32, device=points.device)
-    counts = torch.empty(p, **i32)
-    meta = torch.empty(-(-p // GBLOCK) + 2, **i32)
-    total = ctypes.c_int()
-    pc = (ctypes.c_float * 3)(*grid.pc_min)
-    _lib.check(_lib.lib().gf_splat_bin_count(
-        points.data_ptr(), points.shape[0], box.data_ptr(), p, pc,
-        float(grid.grid_size), grid.H, grid.W, grid.D, counts.data_ptr(),
-        meta.data_ptr(), ctypes.byref(total), _lib.stream_ptr(points)), name)
-    if total.value < 0:
-        raise ValueError(f"{name}: points are not the voxel grid in raster "
-                         f"order")
-    return counts, meta, total.value
-
-
-def bin_gaussians_cuda(points, box, grid) -> SplatBins:
-    """Launch ``csrc/splat_bin.cu``: count each box's tiles (and check that
-    the points are the raster voxel grid, one per voxel, x slowest), scan,
-    read the entry total; then, in one call, expand, sort stably by tile
-    (a counting sort) and make the work items. One host read. Raises
-    ``ValueError`` for other points; grids of more than 4096 tiles are not
-    taken."""
-    name = "splat_bins"
-    counts, meta, total = bin_counts_cuda(points, box, grid)
-    p = box.shape[0]
+    capturing = torch.cuda.is_current_stream_capturing()
+    cap = entries_bound(p, grid)
+    if max_entries is not None:
+        cap = min(cap, max_entries)
+    elif not capturing:
+        cap = int(_tile_extents(box, grid)[1].prod(-1).sum())
     nt = tile_counts(grid)
     tiles = nt[0] * nt[1] * nt[2]
+    lib = _lib.lib()
+    sizes = (ctypes.c_longlong * 2)()
+    _lib.check(lib.gf_splat_bin_sizes(p, grid.H, grid.W, grid.D, cap, sizes),
+               name)
     i32 = dict(dtype=torch.int32, device=points.device)
-    # the counting sort's scratch: keys, values and a count per tile for
-    # each block of GBLOCK Gaussians
-    ws = torch.empty(2 * total + tiles * -(-p // GBLOCK), **i32)
-    out = torch.empty(p + 1 + 2 * total + 3 * tiles + 2, **i32)
+    # scratch: the counts, the blocks' offsets with the total and the flag
+    # word, and the counting sort's keys, values and per-block tile counts
+    meta = torch.empty(p + sizes[1] + sizes[0], **i32)
+    out = torch.empty(p + 1 + 2 * cap + 3 * tiles + 2, **i32)
     gauss_start, rest = out[:p + 1], out[p + 1:]
-    entries, slot = rest[:total], rest[total:2 * total]
-    tile_start = rest[2 * total:2 * total + tiles + 1]
-    tile_items = rest[2 * total + tiles + 1:]
-    _lib.check(_lib.lib().gf_splat_bin_build(
-        box.data_ptr(), p, grid.H, grid.W, grid.D, counts.data_ptr(),
-        meta.data_ptr(), total, ws.data_ptr(), gauss_start.data_ptr(),
+    entries, slot = rest[:cap], rest[cap:2 * cap]
+    tile_start = rest[2 * cap:2 * cap + tiles + 1]
+    tile_items = rest[2 * cap + tiles + 1:]
+    counts, offsets = meta[:p], meta[p:p + sizes[1]]
+    pc = (ctypes.c_float * 3)(*grid.pc_min)
+    _lib.check(lib.gf_splat_bin(
+        points.data_ptr(), points.shape[0], box.data_ptr(), p, pc,
+        float(grid.grid_size), grid.H, grid.W, grid.D, cap,
+        counts.data_ptr(), offsets.data_ptr(),
+        meta[p + sizes[1]:].data_ptr(), gauss_start.data_ptr(),
         entries.data_ptr(), slot.data_ptr(), tile_start.data_ptr(),
         tile_items.data_ptr(), _lib.stream_ptr(points)), name)
     _lib.LAUNCHES["splat_bin"] += 1
+    flags = offsets[-1:]
+    if capturing:
+        DEFERRED_FLAGS.append(flags)
+    else:
+        check_flags(flags, name)
     return SplatBins(tile_start, tile_items, entries, slot, gauss_start,
-                     (grid.H, grid.W, grid.D))
+                     (grid.H, grid.W, grid.D), flags)
 
 
 def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
@@ -517,7 +599,7 @@ def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid,
     gopa = torch.empty(p, **f32)
     gsem = torch.empty(p, c, **f32)
     gcov = torch.empty(p, 6, **f32)
-    work = torch.empty(bins.num_entries, -(-(10 + c) // 4) * 4, **f32)
+    work = torch.empty(bins.capacity, -(-(10 + c) // 4) * 4, **f32)
     head = (points.data_ptr(), gdata.data_ptr(), opa.data_ptr(),
             sem.data_ptr(), box.data_ptr(), gl.data_ptr())
     tail = (p, c, grid.H, grid.W, grid.D, bins.tile_start.data_ptr(),

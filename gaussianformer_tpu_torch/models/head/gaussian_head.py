@@ -16,7 +16,10 @@ layer.
   empty class; a prediction without opacities is splatted with ones.
 
 ``per_axis_radii`` (the reference's localagg_prob_fast) sizes each box by
-the Gaussian's scale on each axis rather than by its largest. With
+the Gaussian's scale on each axis rather than by its largest. ``max_scale``
+(the refinement's largest scale) bounds the boxes, and so the entries of
+the splat's tile bins on the card (the empty Gaussian's box is the whole
+grid); without it the bins have room for every tile of every box. With
 ``"kitti"`` in ``dataset_type`` the learnt Gaussians' zero empty column
 goes first rather than last, in both variants; the splat's uniform
 fallback and ``combine_geosem`` still read the last column as empty, as
@@ -64,9 +67,14 @@ class GaussianHead(nn.Module):
                  empty_scale=(100.0, 100.0, 8.0),
                  use_localaggprob: bool = True,
                  combine_geosem: bool = True, sigmoid_thresh: float = 0.5,
-                 per_axis_radii: bool = False, dataset_type: str = "nusc"):
+                 per_axis_radii: bool = False, dataset_type: str = "nusc",
+                 max_scale: Optional[float] = None):
         super().__init__()
         self.grid = grid
+        self.bound = dict(
+            max_radius=(None if max_scale is None
+                        else grid.radius_bound(max_scale)),
+            whole=int(with_empty))
         self.empty_first = "kitti" in dataset_type
         self.apply_loss_type = apply_loss_type
         self.with_empty = with_empty
@@ -139,14 +147,15 @@ class GaussianHead(nn.Module):
             if self.use_localaggprob:
                 logits, bins, dens, labels = splat_prob(
                     points, *args, self.grid, self.per_axis_radii,
-                    **self.labels)
+                    **self.labels, **self.bound)
                 pred.append(combine_geosem(logits, bins)
                             if self.combine_geosem else logits)
                 bin_logits.append(bins)
                 density.append(dens)
             else:
                 logits, labels = splat_additive(points, *args, self.grid,
-                                                self.per_axis_radii)
+                                                self.per_axis_radii,
+                                                **self.bound)
                 pred.append(logits)
         out = {
             "pred_occ": pred,

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ...device import constant
 from ...kernels.fps import farthest_point_sampling
 from ...ops.compaction import valid_first_order
 from ...ops.safe_ops import safe_inverse_sigmoid
@@ -26,12 +27,18 @@ from .initializer import ResNetSecondFPN
 EPS = torch.finfo(torch.float32).eps
 
 
-def sample_discrete_distribution(pdf, num_samples: int, generator=None):
-    """Inverse-CDF sampling: pdf [..., bins] -> index [..., num_samples]."""
+def sample_discrete_distribution(pdf, num_samples: int, generator=None,
+                                 u=None):
+    """Inverse-CDF sampling: pdf [..., bins] -> index [..., num_samples],
+    on the uniforms ``u`` [..., num_samples] (drawn here when None)."""
     norm = pdf / (EPS + pdf.sum(-1, keepdim=True))
     cdf = torch.cumsum(norm, dim=-1)
-    u = torch.rand(pdf.shape[:-1] + (num_samples,), generator=generator,
-                   device=pdf.device)
+    if u is None:
+        u = torch.rand(pdf.shape[:-1] + (num_samples,), generator=generator,
+                       device=pdf.device)
+    elif u.shape != pdf.shape[:-1] + (num_samples,):
+        raise ValueError(f"the depth draws have shape {tuple(u.shape)}, "
+                         f"not {tuple(pdf.shape[:-1]) + (num_samples,)}")
     idx = (cdf[..., None, :] <= u[..., :, None]).sum(-1)
     return idx.clamp(0, pdf.shape[-1] - 1)
 
@@ -110,6 +117,23 @@ class GaussianLifterV2(nn.Module):
         gt = (gt > 0) & ~oob
         return torch.cat([gt, ~gt.any(-1, keepdim=True)], dim=-1)
 
+    def draw(self, imgs, generator: Optional[torch.Generator] = None):
+        """A forward's random draws on ``imgs`` [B, N, H, W, 3] (H and W
+        multiples of 32: the depth map is H/8 x W/8), in the order the
+        forward draws them from ``generator``: (pick, noise) of
+        :func:`pad_draws` and the depth sampling's uniforms (None with
+        ``deterministic_sampling``). Passed as the forward's ``draws`` they
+        give the bits of drawing there; drawn ahead, they let a CUDA graph
+        replay a frame."""
+        b, n, hh, ww = imgs.shape[:4]
+        dev = imgs.device
+        u = None
+        if not self.deterministic_sampling:
+            u = torch.rand((b, n, hh // 8, ww // 8, self.anchors_per_pixel),
+                           generator=generator, device=dev)
+        num_cand = n * (hh // 8) * (ww // 8) * self.anchors_per_pixel
+        return (*pad_draws(b, num_cand, generator, dev), u)
+
     def forward(self, imgs, projection_mat, image_wh, occ_label=None,
                 occ_cam_mask=None, *,
                 generator: Optional[torch.Generator] = None, draws=None,
@@ -118,7 +142,8 @@ class GaussianLifterV2(nn.Module):
         image); image_wh [B, N, 2]; occ_label [B, X, Y, Z] and
         occ_cam_mask [B, X, Y, Z] for ``pixel_gt`` (with ``compute_gt``).
         ``draws`` replaces the random draws of :func:`pad_draws` (tests
-        feed both packages the same numbers)."""
+        feed both packages the same numbers): (pick, noise), or with a third
+        element the depth sampling's uniforms too (:meth:`draw`)."""
         b, n = imgs.shape[:2]
         dev = imgs.device
         flat = imgs.reshape((b * n,) + imgs.shape[2:]).permute(0, 3, 1, 2)
@@ -128,7 +153,8 @@ class GaussianLifterV2(nn.Module):
         logits = self.projection(feat)                 # [B, N, h, w, S+1]
 
         # ray geometry: x(d) = origin + d * dir   (image -> lidar)
-        inv_proj = torch.linalg.inv(projection_mat)
+        # inv_ex: no host read of the factorisation's status
+        inv_proj = torch.linalg.inv_ex(projection_mat).inverse
         u = (torch.arange(w, device=dev, dtype=torch.float32) + 0.5) / w
         v = (torch.arange(h, device=dev, dtype=torch.float32) + 0.5) / h
         uv = torch.stack([u[None, :].expand(h, w), v[:, None].expand(h, w)],
@@ -140,8 +166,8 @@ class GaussianLifterV2(nn.Module):
         origin = inv_proj[..., :3, 3][:, :, None, None]
         depth_bins = torch.linspace(self.depth_min, self.depth_max,
                                     self.num_samples, device=dev)
-        lo = torch.tensor(self.pc_range[:3], device=dev)
-        hi = torch.tensor(self.pc_range[3:6], device=dev)
+        lo = constant(self.pc_range[:3], torch.float32, dev)
+        hi = constant(self.pc_range[3:6], torch.float32, dev)
         gt = None
         if compute_gt and occ_label is not None:
             gt = self.pixel_gt(origin, ray_dir, depth_bins, occ_label,
@@ -152,7 +178,8 @@ class GaussianLifterV2(nn.Module):
             index = torch.topk(pdfs, self.anchors_per_pixel, dim=-1).indices
         else:
             index = sample_discrete_distribution(
-                pdfs, self.anchors_per_pixel, generator)
+                pdfs, self.anchors_per_pixel, generator,
+                draws[2] if draws is not None and len(draws) > 2 else None)
         disable = (pdfs.argmax(-1, keepdim=True) == self.num_samples)
         disable = disable.expand(index.shape)
         d_sel = depth_bins[index.clamp(0, self.num_samples - 1)]
@@ -165,7 +192,7 @@ class GaussianLifterV2(nn.Module):
 
         # each invalid slot takes a random valid candidate + N(0, 0.1)
         pick, noise = (pad_draws(b, num_cand, generator, dev)
-                       if draws is None else draws)
+                       if draws is None else draws[:2])
         padded = []
         for i in range(b):
             order = valid_first_order(valid[i])

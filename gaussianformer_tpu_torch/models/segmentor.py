@@ -106,7 +106,8 @@ class BEVSegmentor(nn.Module):
             empty_scale=cfg.empty_scale,
             use_localaggprob=cfg.use_localaggprob,
             combine_geosem=cfg.combine_geosem,
-            per_axis_radii=cfg.use_localaggprob_fast)
+            per_axis_radii=cfg.use_localaggprob_fast,
+            max_scale=cfg.scale_range[1])
         refine_cls = (SparseGaussian3DRefinementModuleV2 if cfg.version == 2
                       else SparseGaussian3DRefinementModule)
         _apply_overrides(module_overrides or {}, {

@@ -4,13 +4,13 @@ cartesian pair and the polar anchors of ``spherical_to_cartesian``;
 says."""
 import torch
 
+from ..device import constant
 from .safe_ops import safe_inverse_sigmoid, safe_sigmoid
 
 
 def _bounds(pc_range, like):
-    lo = torch.tensor(pc_range[:3], dtype=like.dtype, device=like.device)
-    hi = torch.tensor(pc_range[3:6], dtype=like.dtype, device=like.device)
-    return lo, hi
+    return (constant(pc_range[:3], like.dtype, like.device),
+            constant(pc_range[3:6], like.dtype, like.device))
 
 
 def cartesian(anchor_xyz, pc_range):

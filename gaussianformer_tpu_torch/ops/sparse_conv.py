@@ -9,16 +9,18 @@ from __future__ import annotations
 
 import torch
 
+from ..device import constant
+
 
 def voxel_indices(xyz, pc_range, grid_size):
     """World xyz -> int64 voxel coords (truncation, as the reference does)
     plus the static grid shape."""
-    lo = torch.tensor(pc_range[:3], dtype=xyz.dtype, device=xyz.device)
-    gs = torch.tensor(grid_size, dtype=xyz.dtype, device=xyz.device)
+    lo = constant(pc_range[:3], xyz.dtype, xyz.device)
+    gs = constant(grid_size, xyz.dtype, xyz.device)
     idx = ((xyz - lo) / gs).to(torch.int32).long()
     shape = tuple(int((pc_range[i + 3] - pc_range[i]) / float(grid_size[i]))
                   for i in range(3))
-    hi = torch.tensor([s - 1 for s in shape], device=xyz.device)
+    hi = constant([s - 1 for s in shape], torch.int64, xyz.device)
     return torch.minimum(idx.clamp_min(0), hi), shape
 
 
@@ -38,7 +40,7 @@ def neighbor_anchors(coords, grid_shape, k: int):
     offs = torch.stack(torch.meshgrid(rng, rng, rng, indexing="ij"),
                        dim=-1).reshape(-1, 3)
     nb = coords[:, None, :] + offs[None]
-    dims = torch.tensor([X, Y, Z], device=dev)
+    dims = constant((X, Y, Z), torch.int64, dev)
     inb = ((nb >= 0) & (nb < dims)).all(-1)
     nb_flat = (nb[..., 0] * Y + nb[..., 1]) * Z + nb[..., 2]
     nb_flat = torch.where(inb, nb_flat, torch.full_like(nb_flat, X * Y * Z))

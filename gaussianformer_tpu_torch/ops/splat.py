@@ -21,12 +21,15 @@ does.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
 
-from ..kernels.splat import (NORM_3D, bin_gaussians_cuda, postprocess_prob,
-                             splat_accumulate, splat_backward)
+from ..device import constant
+from ..kernels.splat import (NORM_3D, bin_gaussians_cuda, entries_bound,
+                             postprocess_prob, splat_accumulate,
+                             splat_backward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,10 +49,9 @@ class SplatGridSpec:
 
     def voxelize(self, xyz):
         """World coords -> int64 voxel coords (floor, clipped in-grid)."""
-        pc_min = torch.tensor(self.pc_min, dtype=xyz.dtype,
-                              device=xyz.device)
-        hi = torch.tensor([self.H - 1, self.W - 1, self.D - 1],
-                          device=xyz.device)
+        pc_min = constant(self.pc_min, xyz.dtype, xyz.device)
+        hi = constant((self.H - 1, self.W - 1, self.D - 1), torch.int64,
+                      xyz.device)
         idx = torch.floor((xyz - pc_min) / self.grid_size).long()
         return torch.minimum(idx.clamp_min(0), hi)
 
@@ -64,6 +66,13 @@ class SplatGridSpec:
             s = s.amax(-1, keepdim=True).expand(scales.shape)
         r = torch.ceil(s * self.scale_multiplier / self.grid_size)
         return r.long().clamp_min(self.radii_min)
+
+    def radius_bound(self, max_scale: float) -> int:
+        """A bound on :meth:`radii` for scales up to ``max_scale`` (with a
+        margin for the fp32 rounding of the scales and of the product)."""
+        r = math.ceil(max_scale * self.scale_multiplier / self.grid_size
+                      * (1.0 + 1e-5))
+        return max(r, self.radii_min)
 
 
 def det_compact(cov6):
@@ -93,10 +102,13 @@ def pack_gaussians(means, opacities, semantics, scales, cov_inv6,
     return gdata, box.contiguous(), sem_aug.float().contiguous()
 
 
-def _bins(points, box, grid):
-    """The splat's tile bins for K4 and K7 on the card; None on the CPU,
-    where the plain versions take no bins."""
-    return bin_gaussians_cuda(points, box, grid) if points.is_cuda else None
+def _bins(points, box, grid, max_entries):
+    """The splat's tile bins for K4 and K7 on the card, sized by
+    ``max_entries``; None on the CPU, where the plain versions take no
+    bins."""
+    if not points.is_cuda:
+        return None
+    return bin_gaussians_cuda(points, box, grid, max_entries)
 
 
 class SplatProbFunction(torch.autograd.Function):
@@ -110,11 +122,11 @@ class SplatProbFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means, opacities, semantics, cov_inv6, points, scales,
-                grid, per_axis, labels):
+                grid, per_axis, labels, max_entries):
         gdata, box, sem_aug = pack_gaussians(means, opacities, semantics,
                                              scales, cov_inv6, grid,
                                              per_axis=per_axis)
-        ctx.bins = _bins(points, box, grid)
+        ctx.bins = _bins(points, box, grid, max_entries)
         acc, one_minus, labels = splat_accumulate(
             points, gdata, box, sem_aug, grid, bins=ctx.bins, **labels)
         logits, bin_logits, density = postprocess_prob(acc, one_minus)
@@ -140,7 +152,7 @@ class SplatProbFunction(torch.autograd.Function):
             points, gdata, opa.float().contiguous(),
             sem.float().contiguous(), box, gl, scalars, ctx.grid,
             bins=ctx.bins)
-        return gmu, gopa, gsem, gcov, None, None, None, None, None
+        return gmu, gopa, gsem, gcov, None, None, None, None, None, None
 
 
 class SplatAdditiveFunction(torch.autograd.Function):
@@ -152,11 +164,11 @@ class SplatAdditiveFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means, opacities, semantics, cov_inv6, points, scales,
-                grid, per_axis):
+                grid, per_axis, max_entries):
         gdata, box, sem_aug = pack_gaussians(
             means, opacities, semantics, scales, cov_inv6, grid, "additive",
             per_axis)
-        ctx.bins = _bins(points, box, grid)
+        ctx.bins = _bins(points, box, grid, max_entries)
         acc, _, labels = splat_accumulate(points, gdata, box, sem_aug, grid,
                                           "additive", bins=ctx.bins)
         ctx.grid = grid
@@ -171,43 +183,52 @@ class SplatAdditiveFunction(torch.autograd.Function):
             points, gdata, opa.float().contiguous(),
             sem.float().contiguous(), box, g_logits.float().contiguous(),
             None, ctx.grid, "additive", bins=ctx.bins)
-        return gmu, gopa, gsem, gcov, None, None, None, None
+        return gmu, gopa, gsem, gcov, None, None, None, None, None
 
 
 def _splat_batched(function, n_out, points, means, opacities, semantics,
-                   scales, cov_inv6, grid, *extra):
+                   scales, cov_inv6, grid, bound, *extra):
+    """``bound``: (the boxes' radius bound or None, the Gaussians at the
+    end whose box may be the whole grid), which sizes the card's bins."""
+    max_entries = entries_bound(means.shape[1], grid, *bound)
     outs = [function.apply(
         means[bi], opacities[bi], semantics[bi], cov_inv6[bi],
-        points[bi].float().contiguous(), scales[bi], grid, *extra)
+        points[bi].float().contiguous(), scales[bi], grid, *extra,
+        max_entries)
         for bi in range(points.shape[0])]
     return tuple(torch.stack([o[k] for o in outs]) for k in range(n_out))
 
 
 def splat_additive(points, means, opacities, semantics, scales, cov_inv6,
-                   grid: SplatGridSpec, per_axis: bool = False):
+                   grid: SplatGridSpec, per_axis: bool = False,
+                   max_radius=None, whole: int = 0):
     """Batched additive splat with final-occ labels, differentiable in
-    ``means``, ``opacities``, ``semantics`` and ``cov_inv6``. Shapes as
-    :func:`splat_prob`. Returns (logits [B, N, C], labels [B, N] int32):
-    the raw sums and their first-index argmax."""
+    ``means``, ``opacities``, ``semantics`` and ``cov_inv6``. Shapes,
+    ``max_radius`` and ``whole`` as :func:`splat_prob`. Returns (logits
+    [B, N, C], labels [B, N] int32): the raw sums and their first-index
+    argmax."""
     return _splat_batched(SplatAdditiveFunction, 2, points, means,
                           opacities, semantics, scales, cov_inv6, grid,
-                          per_axis)
+                          (max_radius, whole), per_axis)
 
 
 def splat_prob(points, means, opacities, semantics, scales, cov_inv6,
                grid: SplatGridSpec, per_axis: bool = False,
                label_mode: str = "combine", thresh: float = 0.5,
-               empty_label: int = 17):
+               empty_label: int = 17, max_radius=None, whole: int = 0):
     """Batched prob splat with final-occ labels, differentiable in
     ``means``, ``opacities``, ``semantics`` and ``cov_inv6``.
 
     points [B, N, 3]; means [B, P, 3]; opacities [B, P]; semantics
     [B, P, C]; scales [B, P, 3]; cov_inv6 [B, P, 6]. ``per_axis``: box
     radii per axis; ``label_mode``, ``thresh``, ``empty_label``: K4's
-    label epilogue (``kernels.splat.labels_from_acc``). Returns (logits
-    [B, N, C], bin_logits [B, N], density [B, N], labels [B, N] int32)."""
+    label epilogue (``kernels.splat.labels_from_acc``); ``max_radius``: a
+    bound on the boxes' radii (``SplatGridSpec.radius_bound``) but for the
+    last ``whole`` Gaussians, which sizes the card's bins (None: every
+    box may cover the grid). Returns (logits [B, N, C], bin_logits [B, N],
+    density [B, N], labels [B, N] int32)."""
     labels = dict(label_mode=label_mode, thresh=thresh,
                   empty_label=empty_label)
     return _splat_batched(SplatProbFunction, 4, points, means, opacities,
-                          semantics, scales, cov_inv6, grid, per_axis,
-                          labels)
+                          semantics, scales, cov_inv6, grid,
+                          (max_radius, whole), per_axis, labels)

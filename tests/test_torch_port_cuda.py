@@ -12,8 +12,8 @@ boxes and with the threshold label mode, the additive splat with the v1
 head's whole-grid Gaussian, the splat's tile bins against their plain
 version, on a grid where no tile is a whole brick; and the backward
 kernels K5-K7 against their plain backward versions on random cotangents.
-The splat kernels K4 and K7 (and their bins) and K6 give the same bits on
-every call, and K6's call makes no host sync. Marked ``cuda``; they skip
+The splat kernels K4 and K7 (and their bins), K5 and K6 give the same bits
+on every call, and the calls of K5 and K6 make no host sync. Marked ``cuda``; they skip
 on a host without a CUDA device. On the card (``--noconftest``:
 tests/conftest.py imports JAX):
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda``.
@@ -21,7 +21,7 @@ tests/conftest.py imports JAX):
 Tolerances: a bf16 output may differ by a rounding flip of its fp32 sum,
 so 2^-7 max|ref| (two bf16 ulps at the top of the range); fp32 gradients
 summed over thousands of terms in another order than the plain version's
-(with atomics for K5) get 1e-3 max|ref|."""
+get 1e-3 max|ref|."""
 import ctypes
 
 import pytest
@@ -278,12 +278,13 @@ def _close(got, ref, tol, name):
 def test_dcn_backward_kernel_matches_plain(gen, shape, offsets):
     """K5 for four offset regimes: fractional (every corner in the
     kernel's g_x window), up to 3 px, up to 12 px (far outside any window
-    and off the image edges: the global-atomic fallback), and converging
+    and off the image edges: the fallback records), and converging
     (every sample of an 8 x 8 tile near one point, so that the window
     cells' buckets overflow into the fallback). Shapes: tiles, C_out and
     the pixel splits of the weight gradient not whole (2460 pixels,
     C_out 136), and C_out 512 (the g_out tile at its largest, two
-    output-channel halves of the weight gradient)."""
+    output-channel halves of the weight gradient). A second call gives
+    the same bits."""
     b, h, w, cin, cout = shape
     x = randn(gen, b, h, w, cin).bfloat16()
     om = randn(gen, b, h, w, 27)
@@ -306,18 +307,21 @@ def test_dcn_backward_kernel_matches_plain(gen, shape, offsets):
     outside, _ = dcn.window_outside_share(offset)
     assert (outside == 0) == (offsets in ("fractional", "converging"))
     got = dcn.deform_conv2d_backward_cuda(x, offset, mask, weight, g_out)
+    again = dcn.deform_conv2d_backward_cuda(x, offset, mask, weight, g_out)
     ref = dcn.deform_conv2d_backward_plain(x, offset, mask, weight, g_out)
-    for name, gt, rf, tol in zip(("g_x", "g_offset", "g_mask", "g_weight"),
-                                 got, ref, (BF16_TOL, SUM_TOL, SUM_TOL,
-                                            BF16_TOL)):
+    for name, gt, ag, rf, tol in zip(
+            ("g_x", "g_offset", "g_mask", "g_weight"), got, again, ref,
+            (BF16_TOL, SUM_TOL, SUM_TOL, BF16_TOL)):
         assert gt.dtype == rf.dtype and gt.shape == rf.shape, name
         _close(gt, rf, tol, name)
+        assert torch.equal(gt, ag), name
 
 
 def test_dcn_backward_parts_split_the_outputs(gen):
-    """K5's launches one at a time (as ``chip_smoke.py`` times them): the
-    input launch gives g_x, g_offset and g_mask and leaves g_weight zero,
-    the weight launch the reverse; together they are the whole call."""
+    """K5's launches in two groups (as ``chip_smoke.py`` times them): the
+    input gradients' launches give g_x, g_offset and g_mask and leave
+    g_weight zero, the weight launch and its splits' sum the reverse;
+    each gives the whole call's bits."""
     b, h, w, cin, cout = 2, 30, 41, 128, 136
     x = randn(gen, b, h, w, cin).bfloat16()
     offset = randn(gen, b, h, w, 18) * 3
@@ -326,13 +330,11 @@ def test_dcn_backward_parts_split_the_outputs(gen):
     g_out = randn(gen, b, h, w, cout).bfloat16()
     args = (x, offset, mask, weight, g_out)
     whole = dcn.deform_conv2d_backward_cuda(*args)
-    inp = dcn.deform_conv2d_backward_cuda(*args, parts=dcn.INPUT_LAUNCH)
-    wgt = dcn.deform_conv2d_backward_cuda(*args, parts=dcn.WEIGHT_LAUNCH)
-    for i, (name, tol) in enumerate((("g_x", BF16_TOL), ("g_offset", SUM_TOL),
-                                     ("g_mask", SUM_TOL),
-                                     ("g_weight", BF16_TOL))):
+    inp = dcn.deform_conv2d_backward_cuda(*args, parts=dcn.INPUT_GRADS)
+    wgt = dcn.deform_conv2d_backward_cuda(*args, parts=dcn.WEIGHT_GRADS)
+    for i, name in enumerate(("g_x", "g_offset", "g_mask", "g_weight")):
         part, other = (wgt, inp) if name == "g_weight" else (inp, wgt)
-        _close(part[i], whole[i], tol, name)
+        assert torch.equal(part[i], whole[i]), name
         assert not other[i].any(), name
 
 
@@ -570,23 +572,63 @@ def _bins_case(gen, case):
 @pytest.mark.parametrize("case", ["iso", "per_axis", "additive", "wide"])
 def test_splat_bins_match_plain(gen, case):
     """The binning launches (count, offsets, expand, columns, tiles,
-    place) give the plain version's bins exactly, twice over; the tile
+    place) give the plain version's bins exactly, twice over: sized by the
+    boxes' own tiles, and in arrays sized by the bound of any boxes (the
+    first ``tile_start[-1]`` entries and slots are the bins); the tile
     edges and the Gaussian block of the CUDA source are the Python
-    constants."""
+    constants. A bound below the entries raises."""
     dims = (ctypes.c_int * 4)()
     _lib.lib().gf_splat_tile_dims(dims)
     assert tuple(dims) == splat.TILE + (splat.GBLOCK,)
     grid, pts, box = _bins_case(gen, case)
     ref = splat.bin_gaussians_plain(box.cpu(), grid)
-    for _ in range(2):
-        got = splat.bin_gaussians_cuda(pts, box, grid)
+    e = ref.num_entries
+    for cap in (None, splat.entries_bound(box.shape[0], grid)):
+        got = splat.bin_gaussians_cuda(pts, box, grid, max_entries=cap)
+        assert got.capacity == (e if cap is None else cap)
         for name in ("tile_start", "tile_items", "entries", "slot",
                      "gauss_start"):
-            assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), \
-                name
+            a = getattr(got, name)
+            if name in ("entries", "slot"):
+                a = a[:e]
+            assert torch.equal(a.cpu(), getattr(ref, name)), name
     assert got.num_entries > box.shape[0]
+    with pytest.raises(ValueError, match="bound"):
+        splat.bin_gaussians_cuda(pts, box, grid, max_entries=e - 1)
     if case in ("additive", "wide"):
         assert got.covers().any()
+
+
+def test_splat_bins_in_a_cuda_graph(gen):
+    """The binning reads nothing back while a CUDA graph is captured: the
+    replay gives the eager bins, and the flag word, checked after the
+    replay (``check_deferred_flags``), still refuses points that are not
+    the raster grid."""
+    grid, pts, box = _bins_case(gen, "iso")
+    cap = splat.entries_bound(box.shape[0], grid)
+    ref = splat.bin_gaussians_cuda(pts, box, grid, max_entries=cap)
+    for points, ok in ((pts, True), (pts.flip(0).contiguous(), False)):
+        splat.DEFERRED_FLAGS.clear()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = splat.bin_gaussians_cuda(points, box, grid,
+                                           max_entries=cap)
+        assert len(splat.DEFERRED_FLAGS) == 1
+        graph.replay()
+        torch.cuda.synchronize()
+        if ok:
+            splat.check_deferred_flags()
+            e = ref.num_entries
+            for name in ("tile_start", "tile_items", "entries", "slot",
+                         "gauss_start"):
+                a, b = getattr(got, name), getattr(ref, name)
+                if name in ("entries", "slot"):
+                    a, b = a[:e], b[:e]
+                assert torch.equal(a, b), name
+        else:
+            with pytest.raises(ValueError, match="raster"):
+                splat.check_deferred_flags()
+    splat.DEFERRED_FLAGS.clear()
 
 
 def test_splat_kernel_refuses_non_raster_points(gen):

@@ -55,7 +55,7 @@ def test_dcn_grads_match_jax(h, w, px):
     """g_x, g_offset, g_mask, g_weight. Offsets of up to ``px`` pixels push
     corners out of the image and, at 12 px, far outside the backward
     kernel's g_x window (8 x 8 tiles with a 3-pixel halo), the regime of
-    its global-atomic fallback; every sample's fractional part lies in
+    its fallback records; every sample's fractional part lies in
     [0.1, 0.9], away from the integer positions where bilinear gradients
     jump."""
     rng = np.random.RandomState(11)
