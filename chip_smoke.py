@@ -5,7 +5,8 @@ configs (gs25600_solid and gs144000), each its inference and training step;
 the prob head's threshold label mode and per-axis splat boxes; the port's
 bench, and its train and eval CLIs on a nuScenes-shaped set of files; the
 model and loss options no shipped config sets; the CLIs in DDP; the
-checkpoint converter and the visualize CLI.
+checkpoint converter and the visualize CLI; the splat's general mode, at
+query points that are not the splat grid.
 
     python3 chip_smoke.py
 
@@ -104,9 +105,11 @@ Phases (each raises on failure, so the script exits nonzero):
             frames' worth: the loop's 11, the pipeline's 4 warm-up and 4
             captured frames, the 4 eager ones; a replay counts nothing;
             every count set to 0 just before, read just after), and, after
-            phase 2, the loop's ms/frame within 15% of phase 2's frame_ms
-            (both include the host's share of a frame, which moves with the
-            shared host);
+            phase 2, the device busy time of one eager frame of the bench's
+            own model and batch (profiled) within 15% of phase 2's profiled
+            frame's: device time, which the shared host does not move (the
+            loop's ms/frame against phase 2's frame_ms, host time included,
+            is printed, not held);
 13. entry   the entry points on a 2-frame nuScenes-shaped set of files in a
             temporary directory (six 1600 x 900 PNGs a frame, SurroundOcc
             labels, the infos pkl): the native codec loaded; the train CLI
@@ -154,7 +157,26 @@ Phases (each raises on failure, so the script exits nonzero):
             gaussianformer_tpu_torch.visualize``'s ``main``) at the
             flagship's full width on one synthetic frame, counted: four
             PNGs, each non-empty and of more than one colour (the card's
-            host has no matplotlib: ``utils/vis.py`` draws them with PIL).
+            host has no matplotlib: ``utils/vis.py`` draws them with PIL);
+18. points  the splat's general mode (``csrc/splat_points_bin.cu``,
+            ``splat_points.cu``, ``splat_points_bwd.cu``) at occ_xyz the
+            grid twice as fine over the same range (400 x 400 x 32,
+            5,120,000 points, 8 a voxel, labels repeated; the head declares
+            no grid order): the prob_gs6400 frame (counted: one points
+            binning and one general K4 in place of the raster K4) and the
+            gs25600_solid frame and train step (general K4 and K7
+            additive), timed, outputs and losses finite, trained leaves
+            moved; general K4 prob on all the points against its plain
+            version (phase 3's tolerance, labels equal but for counted
+            near-ties), the points bins against theirs in every element, a
+            second call's bits and a CUDA graph of the points binning and
+            K4 against the eager call; K4 / K7 additive on every 8th point
+            (the empty Gaussian's row on its own); on phase 3's and 6's
+            flagship inputs, the grid's points permuted: K7 prob against
+            its plain version and the raster K7 (phase 6's tolerance), K4
+            with 1% of the points past pc_range against its plain version,
+            and, put back in order, against the raster K4; per-axis boxes on
+            Prob-256's phase 11 inputs, permuted.
 
 The second-to-last lines are the card's name and power limit and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -179,10 +201,14 @@ STEPS = 3
 FLAGSHIP_FRAMES = 10
 # the bench's frames in one CUDA graph (phase 12)
 PIPELINE = 4
+# every key of the port's kernels/_lib.py::LAUNCHES: a counted run's whole
+# dict is held to an expected one, so a counter missing here fails them all
 NO_LAUNCH = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
              "splat": 0, "splat_additive": 0, "dcn_bwd": 0,
              "deformable_bin": 0, "deformable_bwd": 0, "splat_bwd": 0,
-             "splat_bwd_additive": 0}
+             "splat_bwd_additive": 0, "splat_points_bin": 0,
+             "splat_points": 0, "splat_points_additive": 0,
+             "splat_points_bwd": 0, "splat_points_bwd_additive": 0}
 # the splat's tile binning runs once per forward splat; the backward takes
 # the forward's bins
 EXPECTED_LAUNCHES = {**NO_LAUNCH, "dcn": 52, "fps": 1, "deformable": 4,
@@ -200,6 +226,24 @@ V1_TRAIN_LAUNCHES = {**V1_LAUNCHES, "dcn_bwd": 26, "deformable_bin": 4,
 # gs144000 supervises all four refine layers: four splats and backwards
 V1_ALL_TRAIN_LAUNCHES = {**V1_TRAIN_LAUNCHES, "splat_bin": 4,
                          "splat_additive": 4, "splat_bwd_additive": 4}
+# phase 18, the query points twice as fine as the splat grid: the splat's
+# general mode, one points binning and K4 (and K7) in the general mode in
+# place of the raster ones, on the same Gaussian binning
+POINTS_LAUNCHES = {**EXPECTED_LAUNCHES, "splat": 0, "splat_points_bin": 1,
+                   "splat_points": 1}
+POINTS_V1_LAUNCHES = {**V1_LAUNCHES, "splat_additive": 0,
+                      "splat_points_bin": 1, "splat_points_additive": 1}
+POINTS_V1_TRAIN_LAUNCHES = {**V1_TRAIN_LAUNCHES, "splat_additive": 0,
+                            "splat_bwd_additive": 0, "splat_points_bin": 1,
+                            "splat_points_additive": 1,
+                            "splat_points_bwd_additive": 1}
+# phase 18's query points: a grid this many times finer than the splat
+# grid on each axis, over the same range
+FINER = 2
+# phase 18 holds the plain additive versions on every this many points
+ADDITIVE_STRIDE = 8
+# phase 18 moves this share of the points past pc_range
+OUTSIDE_SHARE = 0.01
 # tolerances of the backward kernels against their plain versions: a bf16
 # output may differ by a rounding flip of its fp32 sum (two bf16 ulps at the
 # top of the range); fp32 gradients summed over thousands of terms in
@@ -348,7 +392,7 @@ def main() -> int:
     fwd = frame_phase(cfg, model, batch, mods, EXPECTED_LAUNCHES,
                       FLAGSHIP_FRAMES)
     frame_ms, wall_ms = fwd["frame_ms"], fwd["frame_wall_ms"]
-    check_bench(bench, frame_ms)
+    check_bench(bench, fwd)
     mark(2)
 
     # ---- 3. kernels against their plain versions on the captured inputs
@@ -359,6 +403,10 @@ def main() -> int:
                     ("splat", "prob", cfg.total_anchors)):
             rows.append(check_kernel(key, captured(fwd["calls"], key),
                                      fwd["launches"], mods))
+    # the flagship's K4 and K7 inputs, which phase 18 runs again in the
+    # general mode
+    keep = {"k4": captured(fwd["calls"], ("splat", "prob",
+                                          cfg.total_anchors))}
     del fwd["calls"]
     # K1's stage-4 numbers ride on its stage-3 row
     k1 = {r["shape"][3]: r for r in rows if r["name"] == "deform_conv2d"}
@@ -386,6 +434,8 @@ def main() -> int:
         with torch.no_grad():
             rows.append(check_backward(key, captured(train["calls"], key),
                                        train["launches"], mods))
+    keep["k7"] = captured(train["calls"], ("splat_bwd", "prob",
+                                           cfg.total_anchors))
     del train["calls"]
     # K5's stage-4 numbers ride on its stage-3 row
     k5 = {r["shape"][3]: r for r in rows
@@ -413,7 +463,7 @@ def main() -> int:
     # ---- 9-11. the GaussianFormer-2 family, the threshold label mode and
     # per-axis boxes
     family = prob_family_phase(get_config, build_segmentor, synthetic_batch,
-                               mods, rows)
+                               mods, rows, keep)
     mark("9-11")
 
     root = tempfile.mkdtemp(prefix="gf_entry_")
@@ -440,6 +490,12 @@ def main() -> int:
         mark(17)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+    # ---- 18. the splat's general mode: query points that are not the grid
+    points = points_phase(get_config, build_segmentor, synthetic_batch, mods,
+                          rows, keep)
+    del keep
+    mark(18)
     entry = {k: v for k, v in entry.items() if not k.startswith("_")}
 
     flat = []
@@ -451,7 +507,7 @@ def main() -> int:
                     "frame_idle_share": fwd["frame_idle_share"],
                     **{k: v for k, v in train.items() if k != "launches"},
                     **repeat, **v1, **family, "bench": bench, **entry,
-                    **options, **ddp, **convert, **vis}))
+                    **options, **ddp, **convert, **vis, **points}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -534,7 +590,6 @@ def frame_phase(cfg, model, batch, mods, expected, frames):
     count set to 0 just before, read just after) with the output gates,
     and ``frames`` timed frames. Raises on wrong counts or outputs."""
     import torch
-    g = cfg.grid
 
     def frame(seed):
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -562,14 +617,16 @@ def frame_phase(cfg, model, batch, mods, expected, frames):
                            f"{expected}")
     occ = out["final_occ"]
     pred = out["pred_occ"][-1]
-    if tuple(occ.shape) != (1, g.num_voxels):
+    n = math.prod(batch["occ_xyz"].shape[1:4])
+    if tuple(occ.shape) != (1, n):
         raise RuntimeError(f"final_occ shape {tuple(occ.shape)}")
     if occ.min().item() < 0 or occ.max().item() >= cfg.num_classes:
         raise RuntimeError("final_occ labels outside 0..17")
-    if tuple(pred.shape) != (1, g.num_voxels, cfg.num_classes):
+    if tuple(pred.shape) != (1, n, cfg.num_classes):
         raise RuntimeError(f"pred_occ shape {tuple(pred.shape)}")
-    if not torch.isfinite(pred).all():
-        raise RuntimeError("pred_occ is not finite")
+    for key in ("pred_occ", "bin_logits", "density"):
+        if out[key] and not torch.isfinite(out[key][-1]).all():
+            raise RuntimeError(f"{key} is not finite")
     hist = torch.bincount(occ.flatten().long(), minlength=cfg.num_classes)
     log(f"# {cfg.name} final_occ label histogram: {hist.tolist()}")
     del out, occ, pred
@@ -588,36 +645,24 @@ def frame_phase(cfg, model, batch, mods, expected, frames):
     log(f"# {cfg.name} forward: {frame_ms:.3f} ms/frame (CUDA events), "
         f"{wall_ms:.3f} ms/frame host wall, {frames} frames, batch 1")
     log(f"# {cfg.name} peak device memory: {peak_gib:.2f} GiB")
-    idle = idle_share(lambda: frame(2 + frames), frame_ms,
-                      f"{cfg.name} frame")
+    idle, busy = idle_share(lambda: frame(2 + frames), frame_ms,
+                            f"{cfg.name} frame")
     return dict(calls=cap.calls, launches=launches, frame_ms=frame_ms,
                 frame_wall_ms=wall_ms, frame_peak_gib=peak_gib,
-                frame_idle_share=idle)
+                frame_idle_share=idle, frame_busy_ms=busy)
 
 
 def idle_share(run, unprofiled_ms, what):
     """The device's idle share of ``run`` (one frame or step): its busy
     time under ``torch.profiler`` against the unprofiled mean time (the
     profiler slows the host far more than the device); None where the
-    profiler recorded no device time."""
-    import torch
-    from gaussianformer_tpu_torch.profile_forward import device_busy_ms
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
-    busy_ms = device_busy_ms(prof.key_averages())
+    profiler recorded no device time. Returns (the share, the busy ms)."""
+    busy_ms = device_busy(run)
     idle = None if busy_ms == 0 else 1.0 - busy_ms / unprofiled_ms
-    log(f"# {what} profiled: {start.elapsed_time(end):.3f} ms, device busy "
-        f"{busy_ms:.3f} ms; idle share against the unprofiled "
-        f"{unprofiled_ms:.3f} ms: "
+    log(f"# {what} profiled: device busy {busy_ms:.3f} ms; idle share "
+        f"against the unprofiled {unprofiled_ms:.3f} ms: "
         f"{'not measured' if idle is None else f'{idle:.3f}'}")
-    return idle
+    return idle, busy_ms
 
 
 def v1_phase(get_config, build_segmentor, synthetic_batch, mods, rows):
@@ -658,11 +703,12 @@ def v1_phase(get_config, build_segmentor, synthetic_batch, mods, rows):
 
 
 def prob_family_phase(get_config, build_segmentor, synthetic_batch, mods,
-                      rows):
+                      rows, keep):
     """Phases 9-11: Prob-128 and Prob-256 at full width, the threshold
     label mode on a Prob-256 frame and per-axis boxes on Prob-256's head
     inputs. Appends their kernel rows to ``rows`` (the per-axis ones
-    printed, not reported) and returns the summary numbers."""
+    printed, not reported), keeps the per-axis K4 and K7 calls in ``keep``
+    (for phase 18) and returns the summary numbers."""
     import dataclasses
     import torch
     summary = {}
@@ -692,7 +738,9 @@ def prob_family_phase(get_config, build_segmentor, synthetic_batch, mods,
                     key, captured(train["calls"], key), train["launches"],
                     mods, tag=name))
             if name == "prob_gs25600":
-                check_per_axis(fwd["calls"], train["calls"], p, mods, rows)
+                keep["per_axis"] = check_per_axis(fwd["calls"],
+                                                  train["calls"], p, mods,
+                                                  rows)
         for part in (fwd, train):
             del part["calls"], part["launches"]
         summary.update({f"{name}_{k}": v for k, v in fwd.items()})
@@ -759,11 +807,16 @@ def bench_phase(mods):
     piped = {}
 
     def compare(p):
-        eager = [p["frame"](i) for i in range(PIPELINE)]
+        # the first eager frame profiled: the device time of the bench's
+        # own frame (its model, batch and forward), which phase 2 holds
+        eager = []
+        piped["frame_busy_ms"] = device_busy(
+            lambda: eager.append(p["frame"](0)))
+        eager += [p["frame"](i) for i in range(1, PIPELINE)]
         piped["equal"] = [torch_equal(a, b) for a, b in zip(p["outs"], eager)]
         piped["ms"] = p["ms"]
         piped["idle"] = idle_share(p["graph"].replay, p["ms"] * PIPELINE,
-                                   f"pipeline({PIPELINE}) replay")
+                                   f"pipeline({PIPELINE}) replay")[0]
     frames = 1 + bench.ITERS + 3 * PIPELINE
     record, ms = counted(mods, "bench --pipeline", times(EXPECTED_LAUNCHES,
                                                          frames),
@@ -780,19 +833,44 @@ def bench_phase(mods):
     torch.cuda.empty_cache()
     return dict(record, ms_per_frame=ms, pipeline_frames=PIPELINE,
                 pipeline_ms_per_frame=piped["ms"],
-                pipeline_idle_share=piped["idle"])
+                pipeline_idle_share=piped["idle"],
+                frame_busy_ms=piped["frame_busy_ms"])
 
 
-def check_bench(bench, frame_ms):
-    """The bench's ms/frame against phase 2's: within 15%, or the bench
-    times something else."""
-    ms = bench["ms_per_frame"]
-    bench["frame_ms_ratio"] = ratio = ms / frame_ms
-    log(f"# bench: {ms:.3f} ms/frame against phase 2's {frame_ms:.3f} "
-        f"(ratio {ratio:.4f}, required within 15%)")
+def device_busy(run) -> float:
+    """The summed device time of the kernels ``run`` launches, under
+    ``torch.profiler``; 0 where the profiler recorded none."""
+    import torch
+    from gaussianformer_tpu_torch.profile_forward import device_busy_ms
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        run()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof.key_averages())
+
+
+def check_bench(bench, fwd):
+    """The bench times the flagship frame: the device busy time of its own
+    frame (one eager frame of its model and batch, profiled) within 15% of
+    phase 2's profiled frame's. Both are device time, which the shared
+    host does not move (the bench's launch counts are held in phase 12).
+    The loop's ms/frame against phase 2's frame_ms, which include the
+    host's share of a frame, is printed beside it."""
+    busy, ref = bench["frame_busy_ms"], fwd["frame_busy_ms"]
+    if not (busy > 0 and ref > 0):
+        raise RuntimeError(f"the profiler recorded no device time (bench "
+                           f"{busy} ms, phase 2 {ref} ms)")
+    bench["frame_busy_ratio"] = ratio = busy / ref
+    ms, frame_ms = bench["ms_per_frame"], fwd["frame_ms"]
+    bench["frame_ms_ratio"] = ms / frame_ms
+    log(f"# bench: its frame's device busy {busy:.3f} ms against phase 2's "
+        f"{ref:.3f} (ratio {ratio:.4f}, required within 15%); its loop "
+        f"{ms:.3f} ms/frame against phase 2's {frame_ms:.3f} (ratio "
+        f"{ms / frame_ms:.4f}, host time included: not held)")
     if not abs(ratio - 1.0) <= 0.15:
-        raise RuntimeError(f"the bench's {ms:.3f} ms/frame is not phase 2's "
-                           f"{frame_ms:.3f} within 15%")
+        raise RuntimeError(f"the bench's frame, {busy:.3f} ms of device "
+                           f"time, is not phase 2's {ref:.3f} within 15%")
 
 
 def entry_phase(mods, root):
@@ -1321,11 +1399,279 @@ def held_within_two_steps(path, plain_path):
     return worst
 
 
+def points_phase(get_config, build_segmentor, synthetic_batch, mods, rows,
+                 keep):
+    """Phase 18: the splat's general mode (K4 and K7 at any query points).
+    The flagship frame and the ``gs25600_solid`` train step with
+    ``occ_xyz`` the grid twice as fine (5,120,000 points, 8 a voxel, not
+    the splat grid): counted, timed, outputs and losses finite; K4 prob on
+    all the points and K4 / K7 additive on every ADDITIVE_STRIDE-th against
+    their plain versions (the points bins against theirs in every
+    element); K4 in a CUDA graph and twice, the same bits. Then, on the
+    flagship's phase 3 and 6 inputs (``keep``): K7 prob at the grid's
+    points permuted, against its plain version and the raster K7; K4 at
+    the permuted points with OUTSIDE_SHARE of them past ``pc_range``
+    against its plain version, and without them, put back in order,
+    against the raster K4; and per-axis boxes on Prob-256's phase 11
+    inputs. Appends the kernel rows to ``rows`` (those of no path
+    printed, not reported) and returns the summary numbers."""
+    import dataclasses
+    import torch
+    from gaussianformer_tpu_torch.data.synthetic import finer_points
+    splat = mods.splat
+    summary = {}
+
+    # ---- the flagship frame at the finer points
+    cfg = get_config("prob_gs6400")
+    p = cfg.total_anchors
+    model, batch = build(cfg, build_segmentor, synthetic_batch)
+    fine = finer_points(batch, FINER)
+    del batch
+    cfg = dataclasses.replace(cfg, name="prob_gs6400_finer")
+    log(f"# {cfg.name}: occ_xyz {list(fine['occ_xyz'].shape)}, the grid "
+        f"{FINER}x finer on each axis over the same range")
+    fwd = frame_phase(cfg, model, fine, mods, POINTS_LAUNCHES, FRAMES)
+    key = ("splat", "prob", p)
+    fn, args, kw = call = captured(fwd["calls"], key)
+    with torch.inference_mode():
+        rows.append(check_kernel(key, call, fwd["launches"], mods,
+                                 tag="prob_gs6400_finer", hold_ties=True))
+        lab = {k: v for k, v in kw.items() if k != "bins"}
+        held_repeat("splat_points_prob_labels_prob_gs6400_finer",
+                    fn(*args, **kw), fn(*args, **kw))
+        summary["points_graph_bit_equal"] = held_graph(
+            fn, args, lab, kw["bins"].capacity, splat)
+    del fwd["calls"], fwd["launches"], call, args, kw
+    summary.update({f"{cfg.name}_{k}": v for k, v in fwd.items()})
+    del model, fine, fwd
+    torch.cuda.empty_cache()
+
+    # ---- K7 prob at the grid's points permuted (phase 6's cotangents)
+    fn, args, kw = keep["k7"]
+    n = args[0].shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    inv = torch.argsort(perm)
+
+    def permuted(a, rows_at=(0, 5, 6)):
+        return tuple(t[perm].contiguous() if i in rows_at else t
+                     for i, t in enumerate(a))
+    pargs = permuted(args)
+    pbins = splat.bin_splat_cuda(pargs[0], args[4], args[7],
+                                 kw["bins"].capacity, grid_ordered=False)
+    with torch.no_grad():
+        row7 = check_backward(("splat_bwd", "prob", p),
+                              (fn, pargs, {"bins": pbins}),
+                              {"splat_points_bwd": 0}, mods,
+                              tag="prob_gs6400_permuted")
+        held_close("splat_points_prob_backward against the raster K7 "
+                   "(unpermuted)", fn(*pargs, bins=pbins), fn(*args, **kw))
+    row7["report"] = False
+    rows.append(row7)
+
+    # ---- K4 at the grid's points permuted, 1% outside; and put back
+    fn, args, kw = keep["k4"]
+    lab = {k: v for k, v in kw.items() if k != "bins"}
+    points = args[0]
+    grid = args[4]
+    moved = points[perm].clone()
+    k = int(n * OUTSIDE_SHARE)
+    lo = torch.tensor(grid.pc_min, device="cuda")
+    span = torch.tensor([grid.H, grid.W, grid.D], device="cuda") \
+        * grid.grid_size
+    side = torch.where(torch.rand(k, generator=gen, device="cuda") < 0.5,
+                       -1.0, 1.0)
+    moved[:k, 0] += side * (span[0] + 1.0)
+    moved[:k] += (torch.rand(k, 3, generator=gen, device="cuda") - 0.5) \
+        * span
+    outside = ((moved < lo) | (moved >= lo + span)).any(-1)
+    with torch.inference_mode():
+        margs = (moved.contiguous(),) + args[1:]
+        got = fn(*margs, **lab)
+        ref, plain_ms = timed(lambda: splat.splat_accumulate_plain(*margs,
+                                                                   **lab))
+        held_prob(f"splat_points_prob (grid permuted, "
+                  f"{int(outside.sum().item())} points outside pc_range)",
+                  got, ref, splat)
+        back = [t[inv] for t in fn(points[perm].contiguous(), *args[1:],
+                                   **lab)]
+        held_prob("splat_points_prob (grid permuted) put back, against the "
+                  "raster K4", back, fn(*args, **kw), splat)
+        summary["points_outside_plain_ms"] = plain_ms
+    del got, ref, back, moved, margs
+
+    # ---- per-axis boxes (Prob-256's phase 11 inputs), grid permuted
+    (fn4, args4, kw4), (fn7, args7, _) = keep["per_axis"]
+    n = args4[0].shape[0]
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    with torch.inference_mode():
+        margs = (args4[0][perm].contiguous(),) + args4[1:]
+        lab = {k: v for k, v in kw4.items() if k != "bins"}
+        held_prob("splat_points_prob per-axis (Prob-256, grid permuted)",
+                  fn4(*margs, **lab),
+                  splat.splat_accumulate_plain(*margs, **lab), splat)
+    with torch.no_grad():
+        pargs = permuted(args7)
+        held_close("splat_points_prob_backward per-axis (Prob-256, grid "
+                   "permuted) against its plain version", fn7(*pargs),
+                   splat.splat_backward_plain(*pargs))
+    del margs, pargs
+
+    # ---- the additive train step at the finer points
+    cfg = get_config("gs25600_solid")
+    p = cfg.num_anchor + int(cfg.with_empty)
+    model, batch = build(cfg, build_segmentor, synthetic_batch)
+    fine = finer_points(batch, FINER)
+    del batch
+    cfg = dataclasses.replace(cfg, name="gs25600_solid_finer")
+    fwd = frame_phase(cfg, model, fine, mods, POINTS_V1_LAUNCHES, FRAMES)
+    train = train_phase(cfg, model, fine, mods, POINTS_V1_TRAIN_LAUNCHES,
+                        STEPS)
+    tag = f"gs25600_solid_finer_every{ADDITIVE_STRIDE}"
+    fn4, args4, kw4 = captured(fwd["calls"], ("splat", "additive", p))
+    fn7, args7, kw7 = captured(train["calls"], ("splat_bwd", "additive", p))
+    cap = kw4["bins"].capacity
+    sub = args4[0][::ADDITIVE_STRIDE].contiguous()
+    with torch.inference_mode():
+        sub_bins = splat.bin_splat_cuda(sub, args4[2], args4[4], cap,
+                                        grid_ordered=False)
+        row = check_kernel(("splat", "additive", p),
+                           (fn4, (sub,) + args4[1:], {"bins": sub_bins}),
+                           fwd["launches"], mods, tag=tag)
+        row["path"] = path_time(fn4, args4, kw4, splat)
+        rows.append(row)
+    with torch.no_grad():
+        sub_gl = args7[5][::ADDITIVE_STRIDE].contiguous()
+        sub_bins = splat.bin_splat_cuda(sub, args7[4], args7[7], cap,
+                                        grid_ordered=False)
+        row7 = check_backward(
+            ("splat_bwd", "additive", p),
+            (fn7, (sub,) + args7[1:5] + (sub_gl,) + args7[6:],
+             {"bins": sub_bins}), train["launches"], mods, tag=tag)
+        row7["path"] = path_time(fn7, args7, kw7, splat)
+        rows.append(row7)
+    for part in (fwd, train):
+        del part["calls"], part["launches"]
+    summary.update({f"{cfg.name}_{k}": v for k, v in fwd.items()})
+    summary.update({f"{cfg.name}_{k}": v for k, v in train.items()})
+    del model, fine, fwd, train, sub, sub_gl, sub_bins
+    torch.cuda.empty_cache()
+    return summary
+
+
+def k4_work(points, gdata, box, sem_aug, pairs, prob: bool):
+    """(flops, bytes) of a K4 call: per (point, Gaussian) pair in the AABB,
+    displacement and quadratic form (~20), exp (~4) and the C (additive)
+    or C + 2 multiply-adds and the 1 - e product (prob); each input read
+    once, each output (acc, labels) written once."""
+    n = points.shape[0]
+    c = sem_aug.shape[1] - (0 if prob else 2)
+    flops = pairs * (24 + 2 * c + (2 if prob else 0))
+    nbytes = (n * 12 + gdata.numel() * 4 + box.numel() * 4
+              + sem_aug.numel() * 4 + n * (c + (2 if prob else 3)) * 4)
+    return flops, nbytes
+
+
+def k7_work(points, gdata, opa, sem, box, gl, scalars, pairs):
+    """(flops, bytes) of a K7 call: per (point, Gaussian) pair in the
+    AABB, displacement and quadratic form (~18), exp (~4), the C-wide dot
+    and gsem multiply-adds (4C), gpower with its division (~10), the nine
+    moments (~24), gw and the weight (~4); the additive variant (no
+    scalars) has no division and no per-point scalars (~50)."""
+    n, c = gl.shape
+    p = gdata.shape[0]
+    additive = scalars is None
+    flops = pairs * ((50 if additive else 60) + 4 * c)
+    nbytes = (n * 12 + gl.numel() * 4
+              + (0 if additive else scalars.numel() * 4)
+              + gdata.numel() * 4 + opa.numel() * 4 + sem.numel() * 4
+              + box.numel() * 4 + p * (3 + 1 + c + 6) * 4)
+    return flops, nbytes
+
+
+def path_time(fn, args, kw, splat) -> dict:
+    """A K4 or K7 call on the path's own inputs and bins (all the finer
+    points, where its row holds the plain version on a subset): its time,
+    the AABB pairs it computes and its bound."""
+    k4 = len(args) == 6
+    grid, box = (args[4], args[2]) if k4 else (args[7], args[4])
+    ms = cuda_ms(lambda: fn(*args, **kw), 3)
+    pairs = splat_pairs(args[0], box, grid)
+    flops, nbytes = (k4_work(*args[:4], pairs, args[5] == "prob") if k4
+                     else k7_work(*args[:7], pairs))
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    log(f"# on all {args[0].shape[0]} points (the path's call): "
+        f"{ms:.4f} ms, {pairs} AABB pairs, bound {max(t_ops, t_bytes):.4f} "
+        f"ms ({'operations' if t_ops >= t_bytes else 'bytes'})")
+    return dict(ms=ms, points=args[0].shape[0], aabb_pairs=pairs,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def held_prob(name, got, ref, splat):
+    """A prob K4's outputs against a reference's: the sums within 1e-4 of
+    the largest |ref| (phase 3's tolerance), one_minus within 1e-4, the
+    labels equal but for counted near-ties."""
+    err = (got[0] - ref[0]).abs().max().item()
+    tol = 1e-4 * max(ref[0].abs().max().item(), 1.0)
+    err_om = (got[1] - ref[1]).abs().max().item()
+    log(f"# {name}: sums max_abs_err {err:.3e} (tol {tol:.3e}), one_minus "
+        f"{err_om:.3e} (tol 1e-4)")
+    if not (err <= tol and err_om <= 1e-4):
+        raise RuntimeError(f"{name} disagrees: {err} > {tol} or one_minus "
+                           f"{err_om}")
+    held_combine_labels(name, got, ref, splat)
+
+
+def held_close(name, got, ref):
+    """K7's four outputs against a reference's, each within SUM_TOL of its
+    largest |ref| (phase 6's tolerance)."""
+    errors = {k: _max_err(k, gt, rf, SUM_TOL) for k, gt, rf in zip(
+        ("g_means", "g_opacities", "g_semantics", "g_cov_inv6"), got, ref)}
+    log(f"# {name}: " + ", ".join(f"{k} {e:.3e} (tol {t:.3e})"
+                                  for k, (e, t) in errors.items()))
+    bad = {k: e for k, (e, t) in errors.items() if not e <= t}
+    if bad:
+        raise RuntimeError(f"{name} disagrees: {bad}")
+
+
+def held_graph(fn, args, lab, cap, splat) -> bool:
+    """One points binning plus K4 (with the Gaussians' binning), captured
+    in a CUDA graph and replayed, against the same eager call: the same
+    bits. Raises if not."""
+    import torch
+    points, box, grid = args[0], args[2], args[4]
+
+    def call():
+        bins = splat.bin_splat_cuda(points, box, grid, cap,
+                                    grid_ordered=False)
+        return fn(*args, **lab, bins=bins)
+    eager = call()
+    splat.DEFERRED_FLAGS.clear()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    splat.check_deferred_flags()
+    splat.DEFERRED_FLAGS.clear()
+    same = all(a is None and b is None or torch_equal(a, b)
+               for a, b in zip(out, eager))
+    log(f"# splat general mode in a CUDA graph (points binning + K4 on "
+        f"{points.shape[0]} points): the replay bit-equal to the eager "
+        f"call {same}")
+    if not same:
+        raise RuntimeError("the general mode's CUDA graph differs from the "
+                           "eager call")
+    del graph, out, eager
+    return same
+
+
 def check_per_axis(fwd_calls, train_calls, p, mods, rows):
     """Phase 11: K4 (the frame's) and K7 (the train step's) on Prob-256's
     head inputs packed again with per-axis boxes, against their plain
     versions with the prob rows' tolerances; printed, not reported (no
-    shipped config takes this path)."""
+    shipped config takes this path). Returns the two calls."""
     pack = mods.ops_splat.pack_gaussians
 
     def per_axis_tables(calls):
@@ -1336,7 +1682,7 @@ def check_per_axis(fwd_calls, train_calls, p, mods, rows):
     fn, args, kw = captured(fwd_calls, ("splat", "prob", p))
     # the path's bins are of the isotropic boxes: none are passed
     kw = {k: v for k, v in kw.items() if k != "bins"}
-    call = (fn, (args[0], gdata, box, sem_aug) + args[4:], kw)
+    call4 = call = (fn, (args[0], gdata, box, sem_aug) + args[4:], kw)
     row = check_kernel(("splat", "prob", p), call,
                        {"splat": 0, "splat_bin": 0}, mods,
                        tag="prob_gs25600_per_axis")
@@ -1351,6 +1697,7 @@ def check_per_axis(fwd_calls, train_calls, p, mods, rows):
     for r in [row, row7] + row.get("extra_rows", []):
         r["report"] = False
     rows += [row, row7]
+    return call4, call
 
 
 def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
@@ -1446,12 +1793,15 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
                    inside_pairs=inside, report=True)
     elif key[1] == "additive":
         points, gdata, box, sem_aug, grid, variant = args
+        cap = path_capacity(kw)
+        general = splat_mode(points, box, grid, cap, mods)
+        pre = "splat_points_" if general else "splat_"
         got = fn(*args)
-        held_given_bins(f"splat_additive{suffix}", got, fn(*args, **kw))
+        held_given_bins(f"{pre}additive{suffix}", got, fn(*args, **kw))
         ref, plain_ms = timed(lambda: splat.splat_accumulate_plain(*args))
-        log_bit_equal(f"splat_additive{suffix}", got, ref)
+        log_bit_equal(f"{pre}additive{suffix}", got, ref)
         c = sem_aug.shape[1] - 2
-        err, tol = held_additive(f"splat_additive{suffix}", got, ref, c)
+        err, tol = held_additive(f"{pre}additive{suffix}", got, ref, c)
         if splat_pairs(points, box[-1:], grid) > BIG_BOX:
             # the last Gaussian is the head's empty one: its whole-grid row
             # can decide every label, so the sums and the label epilogue
@@ -1460,41 +1810,45 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
             sem0 = sem_aug.clone()
             sem0[-1, :c] = 0.0
             args0 = (points, gdata, box, sem0, grid, variant)
-            held_additive(f"splat_additive{suffix} (last Gaussian's "
+            held_additive(f"{pre}additive{suffix} (last Gaussian's "
                           f"semantics zeroed)", fn(*args0),
                           splat.splat_accumulate_plain(*args0), c)
             del sem0, args0
         # the kernel's time includes its binning, sized as the path's
         # bins are (the call builds its own)
-        cap = path_capacity(kw)
-        ms = cuda_ms(lambda: fn(*args, bins=splat.bin_gaussians_cuda(
+        ms = cuda_ms(lambda: fn(*args, bins=splat.bin_splat_cuda(
             points, box, grid, cap)), 10)
         pairs = splat_pairs(points, box, grid)
         # per (point, Gaussian) pair in the AABB: displacement and
         # quadratic form (~20), exp (~4), C multiply-adds
-        flops = pairs * (24 + 2 * c)
+        flops, nbytes = k4_work(points, gdata, box, sem_aug, pairs, False)
         n = points.shape[0]
-        nbytes = (n * 12 + gdata.numel() * 4 + box.numel() * 4
-                  + sem_aug.numel() * 4 + n * (c + 2 + 1) * 4)
-        log(f"# splat_additive{suffix}: {pairs} AABB pairs, "
+        log(f"# {pre}additive{suffix}: {pairs} AABB pairs, "
             f"{gdata.shape[0]} Gaussians")
-        row = dict(name="splat_additive" + suffix, route="cuda",
-                   source="gaussianformer_tpu_torch/csrc/splat.cu",
+        row = dict(name=f"{pre}additive{suffix}", route="cuda",
+                   source="gaussianformer_tpu_torch/csrc/"
+                          + ("splat_points.cu" if general else "splat.cu"),
                    replaces="gaussianformer_tpu/ops/pallas/"
                             "splat_kernel.py:249",
-                   launches=launches["splat_additive"],
+                   launches=launches[f"{pre}additive"],
                    shape=[n, gdata.shape[0]], aabb_pairs=pairs, report=True,
-                   extra_rows=[check_bins(points, box, grid, suffix,
-                                          launches, mods, True, cap)])
+                   extra_rows=[
+                       check_points_bins(points, grid, suffix, launches,
+                                         mods, True) if general else
+                       check_bins(points, box, grid, suffix, launches, mods,
+                                  True, cap)])
     else:
         points, gdata, box, sem_aug, grid, variant = args
         # the path hands K4 its bins; timed and checked here building its own
         kw, path_kw = ({k: v for k, v in kw.items() if k != "bins"}, kw)
+        cap = path_capacity(path_kw)
+        general = splat_mode(points, box, grid, cap, mods)
+        pre = "splat_points_" if general else "splat_"
         got = fn(*args, **kw)
-        held_given_bins(f"splat_prob{suffix}", got, fn(*args, **path_kw))
+        held_given_bins(f"{pre}prob{suffix}", got, fn(*args, **path_kw))
         ref, plain_ms = timed(
             lambda: splat.splat_accumulate_plain(*args, **kw))
-        log_bit_equal(f"splat_prob{suffix}", got, ref)
+        log_bit_equal(f"{pre}prob{suffix}", got, ref)
         err = (got[0] - ref[0]).abs().max().item()
         # fp32 sums over up to thousands of Gaussians in another order
         tol = 1e-4 * max(ref[0].abs().max().item(), 1.0)
@@ -1513,29 +1867,27 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
             if agree < 0.999:
                 raise RuntimeError(f"splat labels agree on only {agree}")
             if hold_ties:
-                held_combine_labels(f"splat_prob_labels{suffix}", got, ref,
+                held_combine_labels(f"{pre}prob_labels{suffix}", got, ref,
                                     splat)
-        cap = path_capacity(path_kw)
-        ms = cuda_ms(lambda: fn(*args, **kw, bins=splat.bin_gaussians_cuda(
+        ms = cuda_ms(lambda: fn(*args, **kw, bins=splat.bin_splat_cuda(
             points, box, grid, cap)), 10)
         pairs = splat_pairs(points, box, grid)
-        c = sem_aug.shape[1]
-        # per (point, Gaussian) pair in the AABB: displacement and
-        # quadratic form (~20), exp (~4), C + 2 multiply-adds, 1-e product
-        flops = pairs * (24 + 2 * c + 2)
+        flops, nbytes = k4_work(points, gdata, box, sem_aug, pairs, True)
         n = points.shape[0]
-        nbytes = (n * 12 + gdata.numel() * 4 + box.numel() * 4
-                  + sem_aug.numel() * 4 + n * (c + 2) * 4)
-        row = dict(name=("splat_prob_labels" if mode == "combine"
-                         else "splat_prob_threshold") + suffix, route="cuda",
-                   source="gaussianformer_tpu_torch/csrc/splat.cu",
+        row = dict(name=pre + ("prob_labels" if mode == "combine"
+                               else "prob_threshold") + suffix, route="cuda",
+                   source="gaussianformer_tpu_torch/csrc/"
+                          + ("splat_points.cu" if general else "splat.cu"),
                    replaces="gaussianformer_tpu/ops/pallas/"
                             "splat_kernel.py:249",
-                   launches=launches["splat"], shape=[n, gdata.shape[0]],
-                   aabb_pairs=pairs, report=True,
-                   extra_rows=[check_bins(points, box, grid, suffix,
-                                          launches, mods,
-                                          mode == "combine", cap)])
+                   launches=launches["splat_points" if general else "splat"],
+                   shape=[n, gdata.shape[0]], aabb_pairs=pairs, report=True,
+                   extra_rows=[
+                       check_points_bins(points, grid, suffix, launches,
+                                         mods, mode == "combine")
+                       if general else
+                       check_bins(points, box, grid, suffix, launches, mods,
+                                  mode == "combine", cap)])
         log(f"# {row['name']}: {pairs} AABB pairs, {gdata.shape[0]} "
             f"Gaussians")
     peak = PEAK_BF16 if name == "dcn" else PEAK_FP32
@@ -1558,6 +1910,54 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
     if not err <= tol:
         raise RuntimeError(f"{row['name']} disagrees with its plain "
                            f"version: {err} > {tol}")
+    return row
+
+
+def splat_mode(points, box, grid, cap, mods) -> bool:
+    """Whether K4 and K7 take their general mode at ``points`` (the bins
+    their own call builds carry the points' bins)."""
+    return mods.splat.bin_splat_cuda(points, box, grid, cap).points \
+        is not None
+
+
+def check_points_bins(points, grid, suffix, launches, mods, report):
+    """The points binning of the splat's general mode
+    (``csrc/splat_points_bin.cu``) against its plain version, every element
+    equal (the sorted order, the tiles' starts, the work items and the
+    tiles' order); its time (CUDA events), the work items and the largest
+    tile. Returns its kernels-line row."""
+    splat = mods.splat
+    got = splat.bin_points_cuda(points, grid)
+    ref, plain_ms = timed(lambda: splat.bin_points_plain(points, grid))
+    names = ("order", "tile_start", "items", "tile_order")
+    err = float(sum(
+        getattr(got, k).numel() if getattr(got, k).shape !=
+        getattr(ref, k).shape else
+        int((getattr(got, k) != getattr(ref, k)).sum().item())
+        for k in names))
+    stats = got.stats()
+    ms = cuda_ms(lambda: splat.bin_points_cuda(points, grid), 10)
+    # each input read once (the points), each output written once (the
+    # order, the tiles' starts and order, the items)
+    t = math.prod(splat.tile_counts(grid))
+    nbytes = (points.shape[0] * (12 + 4)
+              + ((t + 1) + t + stats["item_bound"] + 1) * 4)
+    row = dict(name="splat_points_bins" + suffix, route="cuda",
+               source="gaussianformer_tpu_torch/csrc/splat_points_bin.cu",
+               replaces="gaussianformer_tpu/ops/pallas/splat_kernel.py:334",
+               launches=launches["splat_points_bin"],
+               shape=[points.shape[0]], **stats, max_abs_err=err, tol=0.0,
+               ms=ms, plain_ms=plain_ms, bound_ms=nbytes / PEAK_BYTES * 1e3,
+               bound_by="bytes", library_ms=None, report=report)
+    log(f"# {row['name']}: {stats['points']} points in "
+        f"{stats['tiles_with_points']} tiles (largest {stats['max_tile_points']}"
+        f"), {stats['items']} work items (bound {stats['item_bound']}); "
+        f"{err:.0f} elements differ from the plain bins; binning {ms:.4f} "
+        f"ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+        f"(bytes)")
+    if err:
+        raise RuntimeError(f"{row['name']}: the points bins differ from the "
+                           f"plain version's")
     return row
 
 
@@ -1728,16 +2128,30 @@ def held_combine_labels(name, got, ref, splat):
 
 
 def splat_pairs(points, box, grid) -> int:
-    """(point, Gaussian) pairs inside the AABBs for this run's data: the
-    clipped box volume of each Gaussian (the points are the full grid)."""
+    """(point, Gaussian) pairs inside the AABBs for this run's data: for
+    each box, the points whose voxel (``SplatGridSpec.voxelize``) it holds,
+    from a 3-D prefix sum of the points' count a voxel (for the raster
+    grid, the clipped box volume)."""
     import torch
-    dims = torch.tensor([grid.H, grid.W, grid.D], device=box.device)
+    dev = box.device
+    h, w, d = grid.H, grid.W, grid.D
+    vox = grid.voxelize(points)
+    cnt = torch.bincount((vox[:, 0] * w + vox[:, 1]) * d + vox[:, 2],
+                         minlength=h * w * d).reshape(h, w, d)
+    pre = torch.zeros(h + 1, w + 1, d + 1, dtype=torch.int64, device=dev)
+    pre[1:, 1:, 1:] = cnt.cumsum(0).cumsum(1).cumsum(2)
+    dims = torch.tensor([h, w, d], device=dev)
     lo = box[:, :3].long().clamp_min(0)
     hi = torch.minimum(box[:, 3:].long(), dims - 1)
-    ext = (hi - lo + 1).clamp_min(0)
-    if points.shape[0] != grid.num_voxels:
-        raise RuntimeError("splat points are not the full voxel grid")
-    return int(ext.prod(-1).sum().item())
+    meets = (lo <= hi).all(-1)
+    lo = torch.minimum(lo, dims)
+    hi = torch.where(meets[:, None], hi + 1, lo)
+    total = 0
+    for corner in range(8):
+        pick = [(hi if corner >> a & 1 else lo)[:, a] for a in range(3)]
+        sign = (-1) ** (3 - bin(corner).count("1"))
+        total = total + sign * pre[pick[0], pick[1], pick[2]]
+    return int(torch.where(meets, total, 0).sum().item())
 
 
 def tiny_setup(name, dev, get_config, build_segmentor, synthetic_batch,
@@ -1880,8 +2294,8 @@ def train_phase(cfg, model, batch, mods, expected, steps, loss_fn=None):
         f"{step_wall_ms:.3f} ms/step host wall, {steps} steps, batch 1; "
         f"peak device memory {peak_gib:.2f} GiB; last {vals}")
 
-    idle = idle_share(lambda: step("profiled"), step_ms,
-                      f"{cfg.name} train step")
+    idle, _ = idle_share(lambda: step("profiled"), step_ms,
+                         f"{cfg.name} train step")
 
     frozen_changed, still = [], []
     for n, prm in model.named_parameters():
@@ -1983,31 +2397,27 @@ def check_backward(key, call, launches, mods, tag=""):
     else:
         points, gdata, opa, sem, box, gl, scalars, grid, variant = args
         additive = variant == "additive"
+        general = (kw["bins"].points is not None if kw.get("bins")
+                   else splat_mode(points, box, grid, None, mods))
+        pre = "splat_points_" if general else "splat_"
         plain = splat.splat_backward_plain
         outs = ("g_means", "g_opacities", "g_semantics", "g_cov_inv6")
         tols = (SUM_TOL,) * 4
         pairs = splat_pairs(points, box, grid)
-        n, c = gl.shape
-        p = gdata.shape[0]
-        # per (voxel, Gaussian) pair in the AABB: displacement and
-        # quadratic form (~18), exp (~4), the C-wide dot and gsem
-        # multiply-adds (4C), gpower with its division (~10), the nine
-        # moments (~24), gw and the weight (~4); the additive variant has
-        # no division and no per-voxel scalars (~50)
-        flops = pairs * ((50 if additive else 60) + 4 * c)
-        nbytes = (n * 12 + gl.numel() * 4
-                  + (0 if additive else scalars.numel() * 4)
-                  + gdata.numel() * 4 + opa.numel() * 4 + sem.numel() * 4
-                  + box.numel() * 4 + p * (3 + 1 + c + 6) * 4)
+        n, p = gl.shape[0], gdata.shape[0]
+        flops, nbytes = k7_work(*args[:7], pairs)
         peak = PEAK_FP32
-        row = dict(name=("splat_bwd_additive" if additive
-                         else "splat_prob_backward") + suffix, route="cuda",
-                   source="gaussianformer_tpu_torch/csrc/splat_bwd.cu",
+        row = dict(name=pre + ("bwd_additive" if additive
+                               else "prob_backward") + suffix, route="cuda",
+                   source="gaussianformer_tpu_torch/csrc/"
+                          + ("splat_points_bwd.cu" if general
+                             else "splat_bwd.cu"),
                    replaces="gaussianformer_tpu/ops/pallas/"
                             "splat_bwd_kernel.py:196",
-                   launches=launches["splat_bwd_additive" if additive
-                                     else "splat_bwd"], shape=[n, p],
-                   aabb_pairs=pairs, report=True)
+                   launches=launches.get(
+                       ("splat_points_bwd" if general else "splat_bwd")
+                       + ("_additive" if additive else ""), 0),
+                   shape=[n, p], aabb_pairs=pairs, report=True)
     got = fn(*args)
     if name == "dcn_bwd":
         # no float atomics: a second call gives the same bits
@@ -2089,7 +2499,7 @@ def splat_backward_extras(fn, args, kw, got, mods) -> dict:
     repeat = all(torch_equal(a, b) for a, b in zip(on_path, again))
     bins = kw.get("bins")
     if bins is None:
-        bins = splat.bin_gaussians_cuda(args[0], args[4], args[7])
+        bins = splat.bin_splat_cuda(args[0], args[4], args[7])
     kwb = {**kw, "bins": bins}
     launch = {part: cuda_ms(lambda: fn(*args, **kwb, parts=bit), 10)
               for part, bit in (("tile", splat.TILE_LAUNCH),

@@ -1,6 +1,7 @@
 """Synthetic data with the input contract of the nuScenes loader, made
 from a seed with numpy: the dataset and batch of
 gaussianformer_tpu/data/synthetic.py and ``__graft_entry__._synthetic_batch``,
+:func:`finer_points` (the batch at query points finer than the splat grid)
 and :func:`write_nuscenes_files`, a small nuScenes-shaped set on disk for
 the file pipeline (``data.dataset.NuScenesDataset``)."""
 from __future__ import annotations
@@ -79,6 +80,29 @@ def synthetic_batch(batch: int = 1, image_size=(864, 1600),
     samples = [ds[i] for i in range(batch)]
     return {k: torch.from_numpy(np.stack([s[k] for s in samples])).to(dev)
             for k in samples[0]}
+
+
+def finer_points(batch: Dict[str, torch.Tensor], factor: int = 2,
+                 pc_range=(-50.0, -50.0, -5.0, 50.0, 50.0, 3.0)
+                 ) -> Dict[str, torch.Tensor]:
+    """``batch`` with query points that are not the splat grid: ``occ_xyz``
+    the voxel centres of a grid ``factor`` times finer on each axis over
+    the same range, in that grid's raster order (x slowest; 8 points a
+    voxel for factor 2), and ``occ_label`` and ``occ_cam_mask`` repeated
+    ``factor`` times along each axis, as such points would be labelled."""
+    b, *grid = batch["occ_label"].shape
+    fine = tuple(n * factor for n in grid)
+    reso = (pc_range[3] - pc_range[0]) / fine[0]
+    xyz = torch.from_numpy(occ_meshgrid(pc_range, fine, reso)).to(
+        batch["occ_xyz"].device)
+
+    def repeat(t):
+        for axis in (1, 2, 3):
+            t = t.repeat_interleave(factor, dim=axis)
+        return t
+    return dict(batch, occ_xyz=xyz.expand(b, *xyz.shape).contiguous(),
+                occ_label=repeat(batch["occ_label"]),
+                occ_cam_mask=repeat(batch["occ_cam_mask"]))
 
 
 def _yaw(a: float) -> np.ndarray:

@@ -37,7 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
             "splat": 0, "splat_additive": 0, "dcn_bwd": 0,
             "deformable_bin": 0, "deformable_bwd": 0, "splat_bwd": 0,
-            "splat_bwd_additive": 0}
+            "splat_bwd_additive": 0, "splat_points_bin": 0,
+            "splat_points": 0, "splat_points_additive": 0,
+            "splat_points_bwd": 0, "splat_points_bwd_additive": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -192,6 +194,27 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.gf_splat_bin.argtypes = [P, I, P, I, ctypes.POINTER(F), F, I, I, I, L,
                                 P, P, P, P, P, P, P, P, P]
     so.gf_splat_bin.restype = I
+    FP = ctypes.POINTER(F)
+    so.gf_splat_points_bin_sizes.argtypes = [L, I, I, I, ctypes.POINTER(L)]
+    so.gf_splat_points_bin_sizes.restype = I
+    so.gf_splat_points_bin.argtypes = [P, L, FP, F, I, I, I, P, P, P, P, P,
+                                       P]
+    so.gf_splat_points_bin.restype = I
+    so.gf_splat_points_forward.argtypes = [P, FP, F, I, I, I, P, P, P, I, P,
+                                           P, P, I, P, P, P, P, P, I, F, I,
+                                           P]
+    so.gf_splat_points_forward.restype = I
+    so.gf_splat_points_forward_additive.argtypes = [P, FP, F, I, I, I, P, P,
+                                                    P, I, P, P, P, I, P, P,
+                                                    P, P, P]
+    so.gf_splat_points_forward_additive.restype = I
+    so.gf_splat_points_backward.argtypes = [P, FP, F, I, I, I, P, P, P, P,
+                                            P, P, P, P, P, I, P, P, P, P, P]
+    so.gf_splat_points_backward.restype = I
+    so.gf_splat_points_backward_additive.argtypes = [P, FP, F, I, I, I, P,
+                                                     P, P, P, P, P, P, P, I,
+                                                     P, P, P, P, P]
+    so.gf_splat_points_backward_additive.restype = I
     return so
 
 

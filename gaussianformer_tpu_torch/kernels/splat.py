@@ -3,9 +3,10 @@ its backward, in the two variants of the JAX package: ``prob`` (the
 GaussianFormer-2 GMM superposition) and ``additive`` (the v1 models' plain
 sum of opacity-weighted semantics).
 
-Kernels: ``csrc/splat.cu`` (K4, replaces the TPU kernel
-``gaussianformer_tpu/ops/pallas/splat_kernel.py::splat_raw_pallas`` with
-``emit_labels``) and ``csrc/splat_bwd.cu`` (K7, replaces
+Kernels: ``csrc/splat.cu`` and ``csrc/splat_points.cu`` (K4, replace the
+TPU kernel ``gaussianformer_tpu/ops/pallas/splat_kernel.py::splat_raw_pallas``
+with ``emit_labels``) and ``csrc/splat_bwd.cu`` and
+``csrc/splat_points_bwd.cu`` (K7, replace
 ``gaussianformer_tpu/ops/pallas/splat_bwd_kernel.py::splat_bwd_raw_pallas``).
 Plain versions: :func:`splat_accumulate_plain`, a chunked dense form of
 ``gaussianformer_tpu/ops/splat.py::splat_dense_reference`` (with the
@@ -27,15 +28,25 @@ occupancy exceeds ``thresh`` and ``empty_label`` elsewhere (``"threshold"``);
 for ``additive`` the first-index argmax of the raw sums (0 where no box
 holds the voxel). ``grid`` is an ``ops.splat.SplatGridSpec``.
 
-Both kernels take the points as the raster voxel grid and the Gaussians
-binned by voxel tile (:class:`SplatBins`, built on the card by
-``csrc/splat_bin.cu`` through :func:`bin_gaussians_cuda`; plain version
-:func:`bin_gaussians_plain`). The forward builds the bins, the autograd
-function keeps them for the backward. The card's bins are sized by a bound
-(:func:`entries_bound`) and read nothing back to the host while a CUDA
-graph is captured: their flag word (points not the raster grid, entries
-past the bound) is then checked after a replay
-(:func:`check_deferred_flags`), and at once in an eager call.
+Both kernels run on the Gaussians binned by voxel tile (:class:`SplatBins`,
+built on the card by ``csrc/splat_bin.cu`` through :func:`bin_gaussians_cuda`;
+plain version :func:`bin_gaussians_plain`) in one of two modes. The raster
+mode (``csrc/splat.cu``, ``csrc/splat_bwd.cu``) takes the points as the
+raster voxel grid, one per voxel, x slowest. The general mode
+(``csrc/splat_points.cu``, ``csrc/splat_points_bwd.cu``; the TPU kernel's
+``zrun = 0``) takes any points: they are binned by tile as well
+(:class:`PointBins`, ``csrc/splat_points_bin.cu`` through
+:func:`bin_points_cuda`; plain version :func:`bin_points_plain`), and the
+bins carry them (``SplatBins.points``). :func:`bin_splat_cuda` chooses the
+mode (:func:`raster_path`): the raster mode where the caller declares the
+raster grid and the points are it, else the general one. The forward
+builds the bins, the autograd function keeps them for the backward. The
+card's bins are sized by bounds (:func:`entries_bound`, the points' count)
+and read nothing back to the host while a CUDA graph is captured: their
+flag word (points not the raster grid, entries past the bound) is then
+checked after a replay (:func:`check_deferred_flags`), and at once in an
+eager call, where points declared the raster grid but not it take the
+general mode.
 """
 from __future__ import annotations
 
@@ -174,7 +185,9 @@ class SplatBins:
     -1. On the card ``entries`` and ``slot`` hold the bound of
     :func:`entries_bound` (their first ``tile_start[-1]`` are the bins) and
     ``flags`` [1] int32 the binning's flag word (:data:`NOT_RASTER`,
-    :data:`OVER_BOUND`); the plain bins hold the entries alone."""
+    :data:`OVER_BOUND`); the plain bins hold the entries alone. ``points``:
+    the query points' :class:`PointBins` where the kernels take their
+    general mode, None for the raster grid."""
     tile_start: torch.Tensor
     tile_items: torch.Tensor
     entries: torch.Tensor
@@ -182,6 +195,7 @@ class SplatBins:
     gauss_start: torch.Tensor
     grid_dims: tuple
     flags: torch.Tensor = None
+    points: "PointBins" = None
 
     @property
     def num_entries(self) -> int:
@@ -211,11 +225,17 @@ class SplatBins:
                     max_list=int(lengths.max().item()))
 
 
-def _check_bins(name, bins, grid, p):
+def _check_bins(name, bins, grid, p, n):
     if (bins.grid_dims != (grid.H, grid.W, grid.D)
             or bins.gauss_start.shape[0] != p + 1):
         raise ValueError(f"{name}: the bins are not of this grid and these "
                          f"{p} Gaussians")
+    if bins.points is None and n != grid.num_voxels:
+        raise ValueError(f"{name}: points are not the voxel grid, and the "
+                         f"bins hold no points bins")
+    if bins.points is not None and bins.points.order.shape[0] != n:
+        raise ValueError(f"{name}: the points bins are not of these {n} "
+                         f"points")
 
 
 def _work_items(tile_start):
@@ -321,7 +341,10 @@ def bin_flags_plain(points, box, grid, max_entries=None) -> int:
 
 def check_flags(flags, name="splat_bins"):
     """Raise for a binning's flag word (a host read)."""
-    bits = int(flags.item())
+    _check_bits(int(flags.item()), name)
+
+
+def _check_bits(bits: int, name: str):
     if bits & NOT_RASTER:
         raise ValueError(f"{name}: points are not the voxel grid in raster "
                          f"order")
@@ -338,25 +361,33 @@ def check_deferred_flags():
         check_flags(flags)
 
 
-def bin_gaussians_cuda(points, box, grid, max_entries=None) -> SplatBins:
-    """Launch ``csrc/splat_bin.cu`` in one call with no host read: count
-    each box's tiles (and check that the points are the raster voxel grid,
-    one per voxel, x slowest), scan, expand, sort stably by tile (a
-    counting sort) and make the work items, into arrays of ``max_entries``
-    entries (:func:`entries_bound`). Without it an eager call sizes them
-    by the boxes' own tiles (one host read) and a capture by every tile
-    for every box. The flag word is read at once in an eager call, which
-    raises ``ValueError`` for other points or for boxes past the bound;
-    during a CUDA graph's capture it joins :data:`DEFERRED_FLAGS`. Grids of
-    more than 4096 tiles are not taken."""
+def raster_path(n: int, grid, grid_ordered: bool, bits=None) -> bool:
+    """Whether the splat of ``n`` points takes the kernels' raster mode:
+    the caller declares the raster voxel grid (``grid_ordered``), there are
+    as many points as voxels and the binning's flag word ``bits`` (read in
+    an eager call) does not say otherwise. ``bits`` None: not read (a CUDA
+    graph's capture), so a declared grid takes the raster mode and its flag
+    word is checked after the replay, which raises for points that are not
+    the grid (:func:`check_deferred_flags`). Every other call takes the
+    general mode."""
+    if not grid_ordered or n != grid.num_voxels:
+        return False
+    return bits is None or not bits & NOT_RASTER
+
+
+def _bin_gaussians(points, box, grid, max_entries):
+    """One call of ``csrc/splat_bin.cu`` (see :func:`bin_gaussians_cuda`),
+    with the raster check of ``points`` unless they are None; the flag word
+    is not read. Returns (the bins, whether a graph is being captured)."""
     name = "splat_bins"
     _lib.require_cuda(name, points=points, box=box)
-    _lib.require_dtype(name, "points", points, torch.float32)
+    if points is not None:
+        _lib.require_dtype(name, "points", points, torch.float32)
     _lib.require_dtype(name, "box", box, torch.int32)
     p = box.shape[0]
     if box.shape != (p, 6):
         raise ValueError(f"{name}: bad box shape {tuple(box.shape)}")
-    if points.shape != (grid.num_voxels, 3):
+    if points is not None and points.shape != (grid.num_voxels, 3):
         raise ValueError(f"{name}: points are not the {grid.H}x{grid.W}x"
                          f"{grid.D} voxel grid")
     capturing = torch.cuda.is_current_stream_capturing()
@@ -371,7 +402,7 @@ def bin_gaussians_cuda(points, box, grid, max_entries=None) -> SplatBins:
     sizes = (ctypes.c_longlong * 2)()
     _lib.check(lib.gf_splat_bin_sizes(p, grid.H, grid.W, grid.D, cap, sizes),
                name)
-    i32 = dict(dtype=torch.int32, device=points.device)
+    i32 = dict(dtype=torch.int32, device=box.device)
     # scratch: the counts, the blocks' offsets with the total and the flag
     # word, and the counting sort's keys, values and per-block tile counts
     meta = torch.empty(p + sizes[1] + sizes[0], **i32)
@@ -383,29 +414,178 @@ def bin_gaussians_cuda(points, box, grid, max_entries=None) -> SplatBins:
     counts, offsets = meta[:p], meta[p:p + sizes[1]]
     pc = (ctypes.c_float * 3)(*grid.pc_min)
     _lib.check(lib.gf_splat_bin(
-        points.data_ptr(), points.shape[0], box.data_ptr(), p, pc,
+        None if points is None else points.data_ptr(),
+        0 if points is None else points.shape[0], box.data_ptr(), p, pc,
         float(grid.grid_size), grid.H, grid.W, grid.D, cap,
         counts.data_ptr(), offsets.data_ptr(),
         meta[p + sizes[1]:].data_ptr(), gauss_start.data_ptr(),
         entries.data_ptr(), slot.data_ptr(), tile_start.data_ptr(),
-        tile_items.data_ptr(), _lib.stream_ptr(points)), name)
+        tile_items.data_ptr(), _lib.stream_ptr(box)), name)
     _lib.LAUNCHES["splat_bin"] += 1
     flags = offsets[-1:]
     if capturing:
         DEFERRED_FLAGS.append(flags)
-    else:
-        check_flags(flags, name)
     return SplatBins(tile_start, tile_items, entries, slot, gauss_start,
-                     (grid.H, grid.W, grid.D), flags)
+                     (grid.H, grid.W, grid.D), flags), capturing
+
+
+def bin_gaussians_cuda(points, box, grid, max_entries=None) -> SplatBins:
+    """Launch ``csrc/splat_bin.cu`` in one call with no host read: count
+    each box's tiles (and check that the points are the raster voxel grid,
+    one per voxel, x slowest), scan, expand, sort stably by tile (a
+    counting sort) and make the work items, into arrays of ``max_entries``
+    entries (:func:`entries_bound`). Without it an eager call sizes them
+    by the boxes' own tiles (one host read) and a capture by every tile
+    for every box. The flag word is read at once in an eager call, which
+    raises ``ValueError`` for other points or for boxes past the bound;
+    during a CUDA graph's capture it joins :data:`DEFERRED_FLAGS`. Grids of
+    more than 4096 tiles are not taken."""
+    bins, capturing = _bin_gaussians(points, box, grid, max_entries)
+    if not capturing:
+        check_flags(bins.flags)
+    return bins
+
+
+def bin_splat_cuda(points, box, grid, max_entries=None,
+                   grid_ordered: bool = True) -> SplatBins:
+    """The splat's bins on the card, in the kernels' mode of
+    :func:`raster_path`: the Gaussians' tile bins (:func:`bin_gaussians_cuda`,
+    which checks the points declared the raster grid) and, for the general
+    mode, the points' (:func:`bin_points_cuda`) in ``SplatBins.points``.
+    An eager call reads the flag word once: it raises for boxes past the
+    bound, and sends points declared the grid but not it to the general
+    mode on the same Gaussian bins. No host read during a capture."""
+    n = points.shape[0]
+    declared = raster_path(n, grid, grid_ordered)
+    bins, capturing = _bin_gaussians(points if declared else None, box, grid,
+                                     max_entries)
+    bits = None
+    if not capturing:
+        bits = int(bins.flags.item())
+        _check_bits(bits & OVER_BOUND, "splat_bins")
+    if raster_path(n, grid, grid_ordered, bits):
+        return bins
+    return dataclasses.replace(bins, points=bin_points_cuda(points, grid))
+
+
+@dataclasses.dataclass(frozen=True)
+class PointBins:
+    """Query points binned by voxel tile (tiles numbered as
+    :class:`SplatBins` numbers them), each point in the tile of its voxel
+    (``SplatGridSpec.voxelize``: floor, clamped into the grid). ``order``
+    [N] int32: the point indices sorted stably by tile; tile t's points are
+    ``order[tile_start[t]:tile_start[t + 1]]``, in input order. ``items``
+    [I + 1] int32: the work items of K4's general mode, each tile's points
+    cut into runs of at most :data:`TILE_VOXELS`; an item is the place in
+    ``order`` of its first point, the items in tile order, -1 past their
+    count, which is ``items[I]`` (I: :func:`points_items_bound`).
+    ``tile_order`` [T] int32: the tiles by descending count of points, ties
+    by index (K7's general mode takes them in this order)."""
+    order: torch.Tensor
+    tile_start: torch.Tensor
+    items: torch.Tensor
+    tile_order: torch.Tensor
+    grid_dims: tuple
+
+    @property
+    def num_items(self) -> int:
+        """The work items' count (a host read on the card)."""
+        return int(self.items[-1].item())
+
+    def stats(self) -> dict:
+        """Points, work items, tiles with points and the largest tile's
+        count (host reads)."""
+        counts = self.tile_start[1:] - self.tile_start[:-1]
+        return dict(points=self.order.shape[0], items=self.num_items,
+                    item_bound=self.items.shape[0] - 1,
+                    tiles_with_points=int((counts > 0).sum().item()),
+                    max_tile_points=int(counts.max().item()))
+
+
+#: points of a K4 work item in the general mode (``TILE_VOXELS`` of
+#: ``csrc/splat_bin.cuh``)
+TILE_VOXELS = math.prod(TILE)
+
+
+def points_items_bound(n: int, grid) -> int:
+    """The most work items ``n`` points can give: a tile of m points gives
+    ceil(m / TILE_VOXELS) <= m / TILE_VOXELS + 1, and only a tile with
+    points gives any."""
+    nt = tile_counts(grid)
+    return n // TILE_VOXELS + min(n, nt[0] * nt[1] * nt[2])
+
+
+def bin_points_plain(points, grid) -> PointBins:
+    """The bins of :class:`PointBins` by plain tensor operations (a stable
+    sort by tile, each tile's start by a search, its items enumerated)."""
+    dev = points.device
+    nt = tile_counts(grid)
+    tiles = nt[0] * nt[1] * nt[2]
+    vox = grid.voxelize(points)
+    key = ((vox[:, 0] // TILE[0] * nt[1] + vox[:, 1] // TILE[1]) * nt[2]
+           + vox[:, 2] // TILE[2])
+    sorted_key, order = torch.sort(key, stable=True)
+    start = torch.searchsorted(sorted_key,
+                               torch.arange(tiles + 1, device=dev))
+    counts = start[1:] - start[:-1]
+    per = -(-counts // TILE_VOXELS)
+    first = torch.cumsum(per, 0) - per
+    tile = torch.repeat_interleave(torch.arange(tiles, device=dev), per)
+    k = torch.arange(tile.shape[0], device=dev) - first[tile]
+    found = start[tile] + k * TILE_VOXELS
+    bound = points_items_bound(points.shape[0], grid)
+    items = torch.cat([found, found.new_full((bound - found.shape[0],), -1),
+                       found.new_tensor([found.shape[0]])])
+    i32 = torch.int32
+    return PointBins(order.to(i32), start.to(i32), items.to(i32),
+                     torch.argsort(-counts, stable=True).to(i32),
+                     (grid.H, grid.W, grid.D))
+
+
+def bin_points_cuda(points, grid) -> PointBins:
+    """Launch ``csrc/splat_points_bin.cu`` in one call with no host read: a
+    stable radix sort of the points by tile, the tiles' starts, the work
+    items and the tiles' order, in arrays that the number of points
+    bounds. Grids of more than 4096 tiles are not taken."""
+    name = "splat_points_bins"
+    _lib.require_cuda(name, points=points)
+    _lib.require_dtype(name, "points", points, torch.float32)
+    n = points.shape[0]
+    if points.shape != (n, 3):
+        raise ValueError(f"{name}: bad points shape {tuple(points.shape)}")
+    nt = tile_counts(grid)
+    tiles = nt[0] * nt[1] * nt[2]
+    lib = _lib.lib()
+    sizes = (ctypes.c_longlong * 2)()
+    _lib.check(lib.gf_splat_points_bin_sizes(n, grid.H, grid.W, grid.D,
+                                             sizes), name)
+    bound = sizes[1]
+    i32 = dict(dtype=torch.int32, device=points.device)
+    ws = torch.empty(sizes[0], **i32)
+    out = torch.empty(n + (tiles + 1) + (bound + 1) + tiles, **i32)
+    order, rest = out[:n], out[n:]
+    start, rest = rest[:tiles + 1], rest[tiles + 1:]
+    items, tile_order = rest[:bound + 1], rest[bound + 1:]
+    pc = (ctypes.c_float * 3)(*grid.pc_min)
+    _lib.check(lib.gf_splat_points_bin(
+        points.data_ptr(), n, pc, float(grid.grid_size), grid.H, grid.W,
+        grid.D, ws.data_ptr(), order.data_ptr(), start.data_ptr(),
+        items.data_ptr(), tile_order.data_ptr(), _lib.stream_ptr(points)),
+        name)
+    _lib.LAUNCHES["splat_points_bin"] += 1
+    return PointBins(order, start, items, tile_order,
+                     (grid.H, grid.W, grid.D))
 
 
 def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
                           variant: str = "prob", *,
                           label_mode: str = "combine", thresh: float = 0.5,
                           empty_label: int = 17, bins: SplatBins = None):
-    """Launch ``csrc/splat.cu``: one block per voxel tile over the tile's
-    binned Gaussians. The points must be the raster voxel grid. ``bins``:
-    this splat's :class:`SplatBins`, built here when not given."""
+    """Launch K4 on ``bins`` (this splat's :class:`SplatBins`, built here
+    by :func:`bin_splat_cuda` when not given): ``csrc/splat.cu``, one block
+    per voxel tile over the raster grid's points, or, where the bins carry
+    the points' bins, ``csrc/splat_points.cu``, one block per work item of
+    any points."""
     _check_variant(variant, label_mode)
     name = "splat_accumulate"
     _lib.require_cuda(name, points=points, gdata=gdata, box=box,
@@ -421,29 +601,49 @@ def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
             or box.shape != (p, 6) or sem_aug.shape[0] != p):
         raise ValueError(f"{name}: bad table shapes")
     if bins is None:
-        bins = bin_gaussians_cuda(points, box, grid)
-    elif n != grid.num_voxels:
-        raise ValueError(f"{name}: points are not the voxel grid")
-    _check_bins(name, bins, grid, p)
+        bins = bin_splat_cuda(points, box, grid)
+    _check_bins(name, bins, grid, p, n)
     acc = torch.empty(n, ca, dtype=torch.float32, device=points.device)
     labels = torch.empty(n, dtype=torch.int32, device=points.device)
-    common = (points.data_ptr(), gdata.data_ptr(), box.data_ptr(),
-              sem_aug.data_ptr(), ca - 2, grid.H, grid.W, grid.D,
-              bins.tile_start.data_ptr(), bins.tile_items.data_ptr(),
-              bins.entries.data_ptr(), acc.data_ptr())
-    if variant == "additive":
-        code = _lib.lib().gf_splat_forward_additive(
-            *common, labels.data_ptr(), _lib.stream_ptr(points))
-        _lib.check(code, name)
-        _lib.LAUNCHES["splat_additive"] += 1
-        return acc, None, labels
-    one_minus = torch.empty(n, dtype=torch.float32, device=points.device)
-    code = _lib.lib().gf_splat_forward(
-        *common, one_minus.data_ptr(), labels.data_ptr(),
-        int(label_mode == "threshold"), float(thresh), int(empty_label),
-        _lib.stream_ptr(points))
+    prob = variant == "prob"
+    one_minus = (torch.empty(n, dtype=torch.float32, device=points.device)
+                 if prob else None)
+    lib = _lib.lib()
+    stream = _lib.stream_ptr(points)
+    label_args = (int(label_mode == "threshold"), float(thresh),
+                  int(empty_label))
+    pb = bins.points
+    if pb is None:
+        common = (points.data_ptr(), gdata.data_ptr(), box.data_ptr(),
+                  sem_aug.data_ptr(), ca - 2, grid.H, grid.W, grid.D,
+                  bins.tile_start.data_ptr(), bins.tile_items.data_ptr(),
+                  bins.entries.data_ptr(), acc.data_ptr())
+        if prob:
+            code = lib.gf_splat_forward(*common, one_minus.data_ptr(),
+                                        labels.data_ptr(), *label_args,
+                                        stream)
+        else:
+            code = lib.gf_splat_forward_additive(*common, labels.data_ptr(),
+                                                 stream)
+        key = "splat" if prob else "splat_additive"
+    else:
+        common = (points.data_ptr(), (ctypes.c_float * 3)(*grid.pc_min),
+                  float(grid.grid_size), grid.H, grid.W, grid.D,
+                  pb.order.data_ptr(), pb.tile_start.data_ptr(),
+                  pb.items.data_ptr(), pb.items.shape[0] - 1,
+                  gdata.data_ptr(), box.data_ptr(), sem_aug.data_ptr(),
+                  ca - 2, bins.tile_start.data_ptr(), bins.entries.data_ptr(),
+                  acc.data_ptr())
+        if prob:
+            code = lib.gf_splat_points_forward(
+                *common, one_minus.data_ptr(), labels.data_ptr(),
+                *label_args, stream)
+        else:
+            code = lib.gf_splat_points_forward_additive(
+                *common, labels.data_ptr(), stream)
+        key = "splat_points" if prob else "splat_points_additive"
     _lib.check(code, name)
-    _lib.LAUNCHES["splat"] += 1
+    _lib.LAUNCHES[key] += 1
     return acc, one_minus, labels
 
 
@@ -562,13 +762,16 @@ TILE_LAUNCH, FOLD_LAUNCH = 1, 2
 def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid,
                         variant: str = "prob", *, bins: SplatBins = None,
                         parts: int = TILE_LAUNCH | FOLD_LAUNCH):
-    """Launch ``csrc/splat_bwd.cu``: per voxel tile, each binned
+    """Launch K7 on ``bins`` (the forward's :class:`SplatBins`, built here
+    by :func:`bin_splat_cuda` when not given): per voxel tile, each binned
     Gaussian's sums into its slot of a workspace (entries x (10 + C)
-    floats), then a fold per Gaussian in a fixed order; no atomics. The
-    points must be the raster voxel grid. ``scalars`` is None for the
-    additive variant. ``bins``: the forward's :class:`SplatBins`, built
-    here when not given. ``parts`` selects the launches (to time them
-    apart; with one left out the outputs are not written)."""
+    floats) by ``csrc/splat_bwd.cu``'s tile launch over the raster grid's
+    points or, where the bins carry the points' bins, by
+    ``csrc/splat_points_bwd.cu`` over the tile's points in runs of at most
+    :data:`TILE_VOXELS`; then ``csrc/splat_bwd.cu``'s fold per Gaussian in
+    a fixed order; no atomics. ``scalars`` is None for the additive
+    variant. ``parts`` selects the launches (to time them apart; with one
+    left out the outputs are not written)."""
     _check_variant(variant)
     name = "splat_backward"
     p, c = sem.shape
@@ -585,35 +788,53 @@ def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid,
         _lib.require_dtype(name, key, t,
                            torch.int32 if key == "box" else torch.float32)
     n = points.shape[0]
-    if (gdata.shape != (p, 9) or opa.shape != (p,) or box.shape != (p, 6)
-            or gl.shape != (n, c)
-            or (prob and scalars.shape != (n, 3))):
+    if (points.shape != (n, 3) or gdata.shape != (p, 9)
+            or opa.shape != (p,) or box.shape != (p, 6)
+            or gl.shape != (n, c) or (prob and scalars.shape != (n, 3))):
         raise ValueError(f"{name}: bad table shapes")
     if bins is None:
-        bins = bin_gaussians_cuda(points, box, grid)
-    elif points.shape != (grid.num_voxels, 3):
-        raise ValueError(f"{name}: points are not the voxel grid")
-    _check_bins(name, bins, grid, p)
+        bins = bin_splat_cuda(points, box, grid)
+    _check_bins(name, bins, grid, p, n)
     f32 = dict(dtype=torch.float32, device=points.device)
     gmu = torch.empty(p, 3, **f32)
     gopa = torch.empty(p, **f32)
     gsem = torch.empty(p, c, **f32)
     gcov = torch.empty(p, 6, **f32)
     work = torch.empty(bins.capacity, -(-(10 + c) // 4) * 4, **f32)
+    lib = _lib.lib()
+    stream = _lib.stream_ptr(points)
     head = (points.data_ptr(), gdata.data_ptr(), opa.data_ptr(),
             sem.data_ptr(), box.data_ptr(), gl.data_ptr())
-    tail = (p, c, grid.H, grid.W, grid.D, bins.tile_start.data_ptr(),
-            bins.tile_items.data_ptr(), bins.entries.data_ptr(),
-            bins.slot.data_ptr(),
-            bins.gauss_start.data_ptr(), work.data_ptr(), gmu.data_ptr(),
-            gopa.data_ptr(), gsem.data_ptr(), gcov.data_ptr(), int(parts),
-            _lib.stream_ptr(points))
-    if prob:
-        code = _lib.lib().gf_splat_backward(*head, scalars.data_ptr(), *tail)
+    scal = (scalars.data_ptr(),) if prob else ()
+
+    def raster(bits):
+        tail = (p, c, grid.H, grid.W, grid.D, bins.tile_start.data_ptr(),
+                bins.tile_items.data_ptr(), bins.entries.data_ptr(),
+                bins.slot.data_ptr(), bins.gauss_start.data_ptr(),
+                work.data_ptr(), gmu.data_ptr(), gopa.data_ptr(),
+                gsem.data_ptr(), gcov.data_ptr(), int(bits), stream)
+        fn = lib.gf_splat_backward if prob else lib.gf_splat_backward_additive
+        _lib.check(fn(*head, *scal, *tail), name)
+
+    pb = bins.points
+    if pb is None:
+        raster(parts)
+        key = "splat_bwd" if prob else "splat_bwd_additive"
     else:
-        code = _lib.lib().gf_splat_backward_additive(*head, *tail)
-    _lib.check(code, name)
-    _lib.LAUNCHES["splat_bwd" if prob else "splat_bwd_additive"] += 1
+        if parts & TILE_LAUNCH:
+            fn = (lib.gf_splat_points_backward if prob
+                  else lib.gf_splat_points_backward_additive)
+            _lib.check(fn(
+                points.data_ptr(), (ctypes.c_float * 3)(*grid.pc_min),
+                float(grid.grid_size), grid.H, grid.W, grid.D,
+                pb.order.data_ptr(), pb.tile_start.data_ptr(),
+                pb.tile_order.data_ptr(), *head[1:], *scal, c,
+                bins.tile_start.data_ptr(), bins.entries.data_ptr(),
+                bins.slot.data_ptr(), work.data_ptr(), stream), name)
+        if parts & FOLD_LAUNCH:
+            raster(FOLD_LAUNCH)   # the fold alone: the same per-entry slots
+        key = "splat_points_bwd" if prob else "splat_points_bwd_additive"
+    _lib.LAUNCHES[key] += 1
     return gmu, gopa, gsem, gcov
 
 

@@ -133,12 +133,18 @@ class GaussianHead(nn.Module):
     def forward(self, representation, occ_xyz, occ_label=None,
                 occ_cam_mask=None, training: bool = False,
                 apply_loss_layers: Optional[Sequence[int]] = None):
-        """occ_xyz [B, X, Y, Z, 3] voxel centres, which come back
+        """occ_xyz [B, X, Y, Z, 3] query points (the splat grid's voxel
+        centres, or any others, as the JAX head takes), which come back
         flattened as ``sampled_xyz`` (the distance-weighted focal loss reads
         them); occ_label and occ_cam_mask [B, X, Y, Z] come back flattened
         as the losses' ``sampled_label`` and ``occ_mask``."""
         b = occ_xyz.shape[0]
         points = occ_xyz.reshape(b, -1, 3)
+        # the splat grid's own voxels, in raster order: the kernels' raster
+        # mode (JAX tests the z extent alone; the raster kernels need the
+        # whole grid, and other points take the general mode)
+        g = self.grid
+        grid_ordered = tuple(occ_xyz.shape[1:4]) == (g.H, g.W, g.D)
         layers = loss_layers(self.apply_loss_type, len(representation),
                              training, apply_loss_layers)
         pred, bin_logits, density = [], [], []
@@ -147,7 +153,7 @@ class GaussianHead(nn.Module):
             if self.use_localaggprob:
                 logits, bins, dens, labels = splat_prob(
                     points, *args, self.grid, self.per_axis_radii,
-                    **self.labels, **self.bound)
+                    **self.labels, **self.bound, grid_ordered=grid_ordered)
                 pred.append(combine_geosem(logits, bins)
                             if self.combine_geosem else logits)
                 bin_logits.append(bins)
@@ -155,7 +161,8 @@ class GaussianHead(nn.Module):
             else:
                 logits, labels = splat_additive(points, *args, self.grid,
                                                 self.per_axis_radii,
-                                                **self.bound)
+                                                **self.bound,
+                                                grid_ordered=grid_ordered)
                 pred.append(logits)
         out = {
             "pred_occ": pred,

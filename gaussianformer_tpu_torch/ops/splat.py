@@ -16,7 +16,10 @@ The per-point loop is kernel K4 and its backward kernel K7
 voxel tile once per splat on the card (the forward's bins serve the
 backward), post-processes the accumulators and prepares the backward's
 per-voxel cotangents, as the JAX package's ``_splat_bwd_pallas_batched``
-does.
+does. The points may be any points; ``grid_ordered`` declares that they
+are the raster voxel grid (x slowest, z fastest), which on the card
+selects the kernels' raster mode (JAX's ``grid_ordered`` selects its
+incremental-z path the same way), and otherwise the general mode.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from typing import Tuple
 import torch
 
 from ..device import constant
-from ..kernels.splat import (NORM_3D, bin_gaussians_cuda, entries_bound,
+from ..kernels.splat import (NORM_3D, bin_splat_cuda, entries_bound,
                              postprocess_prob, splat_accumulate,
                              splat_backward)
 
@@ -102,13 +105,14 @@ def pack_gaussians(means, opacities, semantics, scales, cov_inv6,
     return gdata, box.contiguous(), sem_aug.float().contiguous()
 
 
-def _bins(points, box, grid, max_entries):
+def _bins(points, box, grid, max_entries, grid_ordered):
     """The splat's tile bins for K4 and K7 on the card, sized by
-    ``max_entries``; None on the CPU, where the plain versions take no
-    bins."""
+    ``max_entries``, in the kernels' mode for these points
+    (``kernels.splat.bin_splat_cuda``); None on the CPU, where the plain
+    versions take any points and no bins."""
     if not points.is_cuda:
         return None
-    return bin_gaussians_cuda(points, box, grid, max_entries)
+    return bin_splat_cuda(points, box, grid, max_entries, grid_ordered)
 
 
 class SplatProbFunction(torch.autograd.Function):
@@ -122,11 +126,11 @@ class SplatProbFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means, opacities, semantics, cov_inv6, points, scales,
-                grid, per_axis, labels, max_entries):
+                grid, per_axis, labels, max_entries, grid_ordered):
         gdata, box, sem_aug = pack_gaussians(means, opacities, semantics,
                                              scales, cov_inv6, grid,
                                              per_axis=per_axis)
-        ctx.bins = _bins(points, box, grid, max_entries)
+        ctx.bins = _bins(points, box, grid, max_entries, grid_ordered)
         acc, one_minus, labels = splat_accumulate(
             points, gdata, box, sem_aug, grid, bins=ctx.bins, **labels)
         logits, bin_logits, density = postprocess_prob(acc, one_minus)
@@ -152,7 +156,8 @@ class SplatProbFunction(torch.autograd.Function):
             points, gdata, opa.float().contiguous(),
             sem.float().contiguous(), box, gl, scalars, ctx.grid,
             bins=ctx.bins)
-        return gmu, gopa, gsem, gcov, None, None, None, None, None, None
+        return (gmu, gopa, gsem, gcov, None, None, None, None, None, None,
+                None)
 
 
 class SplatAdditiveFunction(torch.autograd.Function):
@@ -164,11 +169,11 @@ class SplatAdditiveFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means, opacities, semantics, cov_inv6, points, scales,
-                grid, per_axis, max_entries):
+                grid, per_axis, max_entries, grid_ordered):
         gdata, box, sem_aug = pack_gaussians(
             means, opacities, semantics, scales, cov_inv6, grid, "additive",
             per_axis)
-        ctx.bins = _bins(points, box, grid, max_entries)
+        ctx.bins = _bins(points, box, grid, max_entries, grid_ordered)
         acc, _, labels = splat_accumulate(points, gdata, box, sem_aug, grid,
                                           "additive", bins=ctx.bins)
         ctx.grid = grid
@@ -183,45 +188,53 @@ class SplatAdditiveFunction(torch.autograd.Function):
             points, gdata, opa.float().contiguous(),
             sem.float().contiguous(), box, g_logits.float().contiguous(),
             None, ctx.grid, "additive", bins=ctx.bins)
-        return gmu, gopa, gsem, gcov, None, None, None, None, None
+        return gmu, gopa, gsem, gcov, None, None, None, None, None, None
 
 
 def _splat_batched(function, n_out, points, means, opacities, semantics,
-                   scales, cov_inv6, grid, bound, *extra):
+                   scales, cov_inv6, grid, bound, grid_ordered, *extra):
     """``bound``: (the boxes' radius bound or None, the Gaussians at the
     end whose box may be the whole grid), which sizes the card's bins."""
     max_entries = entries_bound(means.shape[1], grid, *bound)
     outs = [function.apply(
         means[bi], opacities[bi], semantics[bi], cov_inv6[bi],
         points[bi].float().contiguous(), scales[bi], grid, *extra,
-        max_entries)
+        max_entries, grid_ordered)
         for bi in range(points.shape[0])]
     return tuple(torch.stack([o[k] for o in outs]) for k in range(n_out))
 
 
 def splat_additive(points, means, opacities, semantics, scales, cov_inv6,
                    grid: SplatGridSpec, per_axis: bool = False,
-                   max_radius=None, whole: int = 0):
+                   max_radius=None, whole: int = 0,
+                   grid_ordered: bool = False):
     """Batched additive splat with final-occ labels, differentiable in
     ``means``, ``opacities``, ``semantics`` and ``cov_inv6``. Shapes,
-    ``max_radius`` and ``whole`` as :func:`splat_prob`. Returns (logits
-    [B, N, C], labels [B, N] int32): the raw sums and their first-index
-    argmax."""
+    ``max_radius``, ``whole`` and ``grid_ordered`` as :func:`splat_prob`.
+    Returns (logits [B, N, C], labels [B, N] int32): the raw sums and their
+    first-index argmax."""
     return _splat_batched(SplatAdditiveFunction, 2, points, means,
                           opacities, semantics, scales, cov_inv6, grid,
-                          (max_radius, whole), per_axis)
+                          (max_radius, whole), grid_ordered, per_axis)
 
 
 def splat_prob(points, means, opacities, semantics, scales, cov_inv6,
                grid: SplatGridSpec, per_axis: bool = False,
                label_mode: str = "combine", thresh: float = 0.5,
-               empty_label: int = 17, max_radius=None, whole: int = 0):
+               empty_label: int = 17, max_radius=None, whole: int = 0,
+               grid_ordered: bool = False):
     """Batched prob splat with final-occ labels, differentiable in
     ``means``, ``opacities``, ``semantics`` and ``cov_inv6``.
 
-    points [B, N, 3]; means [B, P, 3]; opacities [B, P]; semantics
-    [B, P, C]; scales [B, P, 3]; cov_inv6 [B, P, 6]. ``per_axis``: box
-    radii per axis; ``label_mode``, ``thresh``, ``empty_label``: K4's
+    points [B, N, 3], any points (each in its voxel of
+    ``SplatGridSpec.voxelize``, clamped into the grid); means [B, P, 3];
+    opacities [B, P]; semantics [B, P, C]; scales [B, P, 3]; cov_inv6
+    [B, P, 6]. ``grid_ordered``: declare that each batch element's points
+    are the raster voxel grid (x slowest, z fastest), the kernels' raster
+    mode on the card; an eager call at points that are not that grid takes
+    the general mode, and during a CUDA graph's capture such points raise
+    after the replay (``kernels.splat.check_deferred_flags``).
+    ``per_axis``: box radii per axis; ``label_mode``, ``thresh``, ``empty_label``: K4's
     label epilogue (``kernels.splat.labels_from_acc``); ``max_radius``: a
     bound on the boxes' radii (``SplatGridSpec.radius_bound``) but for the
     last ``whole`` Gaussians, which sizes the card's bins (None: every
@@ -231,4 +244,5 @@ def splat_prob(points, means, opacities, semantics, scales, cov_inv6,
                   empty_label=empty_label)
     return _splat_batched(SplatProbFunction, 4, points, means, opacities,
                           semantics, scales, cov_inv6, grid,
-                          (max_radius, whole), per_axis, labels)
+                          (max_radius, whole), grid_ordered, per_axis,
+                          labels)

@@ -10,7 +10,10 @@ and level count with its pixel bins against the plain bins, a pixel list
 split over warps, a splat with sparse and dense coverage, with per-axis
 boxes and with the threshold label mode, the additive splat with the v1
 head's whole-grid Gaussian, the splat's tile bins against their plain
-version, on a grid where no tile is a whole brick; and the backward
+version, on a grid where no tile is a whole brick, the splat's general
+mode at any points (its points bins against their plain version; K4 and
+K7 at finer, shuffled, outside, crowded and odd-sized point sets, and at
+the raster grid's own points against the raster mode); and the backward
 kernels K5-K7 against their plain backward versions on random cotangents.
 The splat kernels K4 and K7 (and their bins), K5 and K6 give the same bits
 on every call, and the calls of K5 and K6 make no host sync. Marked ``cuda``; they skip
@@ -23,6 +26,7 @@ so 2^-7 max|ref| (two bf16 ulps at the top of the range); fp32 gradients
 summed over thousands of terms in another order than the plain version's
 get 1e-3 max|ref|."""
 import ctypes
+import math
 
 import pytest
 import torch
@@ -466,8 +470,9 @@ def test_deformable_backward_makes_no_host_sync(gen):
 
 @pytest.mark.parametrize("per_axis", [False, True])
 def test_splat_backward_kernel_matches_plain(gen, per_axis):
-    """K7 on random per-voxel cotangents; and the wrapper refuses points
-    that are not the raster grid."""
+    """K7 on random per-voxel cotangents; and, at the raster grid's points
+    in reverse order with their cotangent rows, its general mode against
+    the plain version on the same rows (no refusal)."""
     grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
     gdata, box, _ = pack_gaussians(means, opa, sem, scales, cov6, grid,
                                    per_axis=per_axis)
@@ -479,8 +484,14 @@ def test_splat_backward_kernel_matches_plain(gen, per_axis):
     ref = splat.splat_backward_plain(*args)
     for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got, ref):
         _close(gt, rf, SUM_TOL, name)
-    with pytest.raises(ValueError):
-        splat.splat_backward_cuda(pts.flip(0).contiguous(), *args[1:])
+    flip = [t.flip(0).contiguous() for t in (pts, gl, scalars)]
+    rev = (flip[0], gdata, opa, sem, box, flip[1], flip[2], grid)
+    _lib.reset_launches()
+    got = splat.splat_backward_cuda(*rev)
+    assert _lib.LAUNCHES["splat_points_bwd"] == 1
+    for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got,
+                            splat.splat_backward_plain(*rev)):
+        _close(gt, rf, SUM_TOL, name)
 
 
 def _additive_case(gen):
@@ -602,18 +613,21 @@ def test_splat_bins_match_plain(gen, case):
 def test_splat_bins_in_a_cuda_graph(gen):
     """The binning reads nothing back while a CUDA graph is captured: the
     replay gives the eager bins, and the flag word, checked after the
-    replay (``check_deferred_flags``), still refuses points that are not
-    the raster grid."""
+    replay (``check_deferred_flags``), still refuses points declared the
+    raster grid that are not it (the one refusal left: an eager call sends
+    them to the general mode). Points not declared the grid take the
+    general mode in the capture too: one points binning plus K4, replayed,
+    equals the eager call."""
     grid, pts, box = _bins_case(gen, "iso")
     cap = splat.entries_bound(box.shape[0], grid)
     ref = splat.bin_gaussians_cuda(pts, box, grid, max_entries=cap)
-    for points, ok in ((pts, True), (pts.flip(0).contiguous(), False)):
+    flipped = pts.flip(0).contiguous()
+    for points, ok in ((pts, True), (flipped, False)):
         splat.DEFERRED_FLAGS.clear()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            got = splat.bin_gaussians_cuda(points, box, grid,
-                                           max_entries=cap)
-        assert len(splat.DEFERRED_FLAGS) == 1
+            got = splat.bin_splat_cuda(points, box, grid, max_entries=cap)
+        assert len(splat.DEFERRED_FLAGS) == 1 and got.points is None
         graph.replay()
         torch.cuda.synchronize()
         if ok:
@@ -628,19 +642,51 @@ def test_splat_bins_in_a_cuda_graph(gen):
         else:
             with pytest.raises(ValueError, match="raster"):
                 splat.check_deferred_flags()
+    _, _, means, opa, sem, scales, cov6 = _splat_case(gen)
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid)
+    eager = splat.bin_splat_cuda(flipped, tables[1], grid, max_entries=cap)
+    assert eager.points is not None
+    want = splat.splat_accumulate_cuda(flipped, *tables, grid, bins=eager)
+    _lib.reset_launches()
     splat.DEFERRED_FLAGS.clear()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bins = splat.bin_splat_cuda(flipped, tables[1], grid,
+                                    max_entries=cap, grid_ordered=False)
+        out = splat.splat_accumulate_cuda(flipped, *tables, grid, bins=bins)
+    assert bins.points is not None
+    assert (_lib.LAUNCHES["splat_points_bin"], _lib.LAUNCHES["splat_points"],
+            _lib.LAUNCHES["splat_bin"], _lib.LAUNCHES["splat"]) == (1, 1, 1,
+                                                                     0)
+    graph.replay()
+    torch.cuda.synchronize()
+    splat.check_deferred_flags()
+    splat.DEFERRED_FLAGS.clear()
+    assert _equal(out, want)
 
 
 def test_splat_kernel_refuses_non_raster_points(gen):
-    """K4, like K7, takes only the raster voxel grid: points in another
-    order, or fewer of them, raise (no fallback)."""
+    """K4 takes any points: at the grid's points in reverse order, or one
+    fewer, it takes the general mode (the points binning and
+    ``csrc/splat_points.cu``) and agrees with the plain version; the one
+    refusal left is K4 handed raster bins for other points (no fallback)."""
     grid, pts, means, opa, sem, scales, cov6 = _splat_case(gen)
-    tables = pack_gaussians(means, opa, sem, scales, cov6, grid)
-    for bad in (pts.flip(0).contiguous(), pts[:-1].contiguous()):
-        with pytest.raises(ValueError):
-            splat.splat_accumulate_cuda(bad, *tables, grid)
-        with pytest.raises(ValueError):
-            splat.splat_accumulate_cuda(bad, *tables, grid, "additive")
+    for variant in ("prob", "additive"):
+        tables = pack_gaussians(means, opa, sem, scales, cov6, grid, variant)
+        for bad in (pts.flip(0).contiguous(), pts[:-1].contiguous()):
+            _lib.reset_launches()
+            got = splat.splat_accumulate_cuda(bad, *tables, grid, variant)
+            key = "splat_points" if variant == "prob" else \
+                "splat_points_additive"
+            assert _lib.LAUNCHES[key] == 1
+            assert _lib.LAUNCHES["splat_points_bin"] == 1
+            ref = splat.splat_accumulate_plain(bad, *tables, grid, variant)
+            assert (got[0] - ref[0]).abs().max() <= \
+                1e-4 * ref[0].abs().max()
+        raster = splat.bin_gaussians_cuda(pts, tables[1], grid)
+        with pytest.raises(ValueError, match="voxel grid"):
+            splat.splat_accumulate_cuda(pts[:-1].contiguous(), *tables, grid,
+                                        variant, bins=raster)
 
 
 def _equal(a, b):
@@ -751,3 +797,176 @@ def test_splat_kernels_on_split_tiles(gen, variant):
     for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got, ref):
         _close(gt, rf, SUM_TOL, name)
     assert _equal(got, splat.splat_backward_cuda(*args))
+
+
+def _points_case(gen, case):
+    """Query points of the splat's general mode on the 40 x 30 x 8 grid of
+    :func:`_splat_case`: ``fine``, the voxel centres of a grid twice as
+    fine (8 points a voxel, in its raster order); ``outside``, the grid's
+    own centres shuffled with one in ten moved past ``pc_range`` (they fall
+    into border voxels); ``crowded``, 3000 random points of which 2000 in
+    one corner voxel (a tile of more than ``TILE_VOXELS`` points); ``odd``,
+    1001 random points, some outside."""
+    grid = _splat_case(gen)[0]
+    lo = torch.tensor(grid.pc_min, device="cuda")
+    span = torch.tensor([grid.H, grid.W, grid.D], device="cuda") * 0.5
+    if case == "fine":
+        axes = [torch.arange(2 * n, device="cuda") * 0.25 + 0.125 + l0
+                for n, l0 in zip((grid.H, grid.W, grid.D), grid.pc_min)]
+        return torch.stack(torch.meshgrid(*axes, indexing="ij"),
+                           -1).reshape(-1, 3).contiguous()
+    if case == "outside":
+        pts = _splat_case(gen)[1]
+        perm = torch.randperm(pts.shape[0], generator=gen, device="cuda")
+        pts = pts[perm].clone()
+        k = pts.shape[0] // 10
+        pts[:k] += (torch.rand(k, 3, generator=gen, device="cuda") - 0.5) \
+            * span * 3
+        return pts.contiguous()
+    n = 3000 if case == "crowded" else 1001
+    pts = lo - 0.2 * span + torch.rand(n, 3, generator=gen, device="cuda") \
+        * span * 1.4
+    if case == "crowded":
+        pts[:2000] = lo + torch.rand(2000, 3, generator=gen,
+                                     device="cuda") * 0.4
+    return pts.contiguous()
+
+
+POINTS_CASES = ["fine", "outside", "crowded", "odd"]
+
+
+@pytest.mark.parametrize("case", POINTS_CASES)
+def test_splat_points_bins_match_plain(gen, case):
+    """The points binning (one sort pass here: 60 tiles) gives the plain
+    version's bins in every element, with no host read, and again on a
+    second call."""
+    grid = _splat_case(gen)[0]
+    pts = _points_case(gen, case)
+    ref = splat.bin_points_plain(pts, grid)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = splat.bin_points_cuda(pts, grid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name in ("order", "tile_start", "items", "tile_order"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    again = splat.bin_points_cuda(pts, grid)
+    assert torch.equal(again.order, got.order)
+    if case == "crowded":
+        assert got.stats()["max_tile_points"] > splat.TILE_VOXELS
+
+
+def test_splat_points_bins_two_passes(gen):
+    """A grid of more than 1024 tiles sorts in two radix passes: the bins
+    still equal the plain ones."""
+    grid = SplatGridSpec(H=192, W=192, D=32, pc_min=(-48.0, -48.0, -8.0),
+                         grid_size=0.5)
+    assert math.prod(splat.tile_counts(grid)) > 1024
+    pts = (torch.rand(200000, 3, generator=gen, device="cuda")
+           * torch.tensor([104.0, 104.0, 18.0], device="cuda")
+           - torch.tensor([52.0, 52.0, 9.0], device="cuda")).contiguous()
+    got = splat.bin_points_cuda(pts, grid)
+    ref = splat.bin_points_plain(pts, grid)
+    for name in ("order", "tile_start", "items", "tile_order"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def _points_tables(gen, variant, per_axis=False):
+    case = _additive_case if variant == "additive" else _splat_case
+    grid, _, means, opa, sem, scales, cov6 = case(gen)
+    tables = pack_gaussians(means, opa, sem, scales, cov6, grid, variant,
+                            per_axis)
+    return grid, opa, sem, tables
+
+
+@pytest.mark.parametrize("case", POINTS_CASES)
+@pytest.mark.parametrize("variant", ["prob", "additive", "threshold",
+                                     "per_axis"])
+def test_splat_points_kernels_match_plain(gen, variant, case):
+    """K4 and K7 in the general mode against their plain versions at any
+    points: K4's sums within 1e-4 of the largest, ``one_minus`` within
+    1e-4, labels equal but for near-ties (the combine scores' top two
+    within 1e-6; additive: where the two largest sums differ by more than
+    their columns' tolerances); K7 within 1e-3 of each output's largest
+    (the additive whole-grid Gaussian's row on its own). A second call of
+    each gives the same bits."""
+    kind = "additive" if variant == "additive" else "prob"
+    grid, opa, sem, tables = _points_tables(gen, kind, variant == "per_axis")
+    pts = _points_case(gen, case)
+    kw = (dict(label_mode="threshold", thresh=0.95, empty_label=17)
+          if variant == "threshold" else {})
+    bins = splat.bin_splat_cuda(pts, tables[1], grid, grid_ordered=False)
+    assert bins.points is not None
+    got = splat.splat_accumulate_cuda(pts, *tables, grid, kind, bins=bins,
+                                      **kw)
+    assert _equal(got, splat.splat_accumulate_cuda(pts, *tables, grid, kind,
+                                                   bins=bins, **kw))
+    ref = splat.splat_accumulate_plain(pts, *tables, grid, kind, **kw)
+    c = sem.shape[1]
+    if kind == "additive":
+        acc, ref_acc = got[0][:, :c], ref[0][:, :c]
+        tol = 1e-4 * ref_acc.abs().amax(0)
+        assert ((acc - ref_acc).abs().amax(0) <= tol).all()
+        top = ref_acc.topk(2, dim=-1)
+        clear = (top.values[:, 0] - top.values[:, 1]) > \
+            tol[top.indices].sum(-1)
+        assert torch.equal(got[2][clear], ref[2][clear])
+    else:
+        assert (got[0] - ref[0]).abs().max() <= 1e-4 * ref[0].abs().max()
+        assert (got[1] - ref[1]).abs().max() <= 1e-4
+        logits, bins_p, _ = splat.postprocess_prob(ref[0], ref[1])
+        if variant == "threshold":
+            top = logits.topk(2, dim=-1).values
+            near = ((bins_p - 0.95).abs() < 1e-6) | (
+                (bins_p > 0.95) & (top[:, 0] - top[:, 1] < 1e-6))
+        else:
+            top = splat.combine_geosem(logits, bins_p).topk(2, -1).values
+            near = top[:, 0] - top[:, 1] <= 1e-6
+        assert torch.equal(got[2][~near], ref[2][~near])
+    n = pts.shape[0]
+    gl = randn(gen, n, c)
+    scalars = randn(gen, n, 3) if kind == "prob" else None
+    args = (pts, tables[0], opa, sem, tables[1], gl, scalars, grid, kind)
+    got = splat.splat_backward_cuda(*args, bins=bins)
+    assert _equal(got, splat.splat_backward_cuda(*args, bins=bins))
+    ref = splat.splat_backward_plain(*args)
+    for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got, ref):
+        if kind == "additive":
+            _close(gt[:-1], rf[:-1], SUM_TOL, name + " of the small boxes")
+            _close(gt[-1], rf[-1], SUM_TOL, name + " of the whole-grid box")
+        else:
+            _close(gt, rf, SUM_TOL, name)
+
+
+@pytest.mark.parametrize("variant", ["prob", "additive"])
+def test_splat_points_on_the_grid_equal_the_raster_mode(gen, variant):
+    """The general mode at the raster grid's own points, permuted: K4's
+    rows (put back in raster order) are the raster mode's to the prob
+    tolerance, its labels equal but for near-ties, and K7 (on the permuted
+    cotangent rows) the raster K7's to 1e-3: the sums run in another
+    order."""
+    grid, opa, sem, tables = _points_tables(gen, variant)
+    pts = _splat_case(gen)[1]
+    perm = torch.randperm(pts.shape[0], generator=gen, device="cuda")
+    inv = torch.argsort(perm)
+    raster = splat.splat_accumulate_cuda(pts, *tables, grid, variant)
+    gen_out = splat.splat_accumulate_cuda(pts[perm].contiguous(), *tables,
+                                          grid, variant)
+    acc = gen_out[0][inv]
+    assert (acc - raster[0]).abs().max() <= 1e-4 * raster[0].abs().max()
+    same = (gen_out[2][inv] == raster[2]).float().mean()
+    assert same >= 0.999
+    c = sem.shape[1]
+    gl = randn(gen, pts.shape[0], c)
+    scalars = randn(gen, pts.shape[0], 3) if variant == "prob" else None
+    args = (tables[0], opa, sem, tables[1])
+    want = splat.splat_backward_cuda(pts, *args, gl, scalars, grid, variant)
+    got = splat.splat_backward_cuda(
+        pts[perm].contiguous(), *args, gl[perm].contiguous(),
+        None if scalars is None else scalars[perm].contiguous(), grid,
+        variant)
+    for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got, want):
+        if variant == "additive":
+            _close(gt[:-1], rf[:-1], SUM_TOL, name)
+        else:
+            _close(gt, rf, SUM_TOL, name)

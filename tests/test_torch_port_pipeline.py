@@ -3,8 +3,10 @@ lifter's draws made ahead give the bits of drawing inside the forward;
 the bench's ``--pipeline`` has no CPU version; the splat bins' bound
 (``kernels/splat.py::entries_bound``, which sizes the card's bins with no
 host read) holds the entries of the tiny and full-width boxes; and the
-binning's flag word, whose plain version is ``bin_flags_plain``, still
-refuses points that are not the raster voxel grid."""
+binning's flag word, whose plain version is ``bin_flags_plain``, tells
+the raster voxel grid from other points, which take the splat's general
+mode (``raster_path``; on the card, a ``cuda`` case by the launch
+counters)."""
 import numpy as np
 import pytest
 import torch
@@ -131,7 +133,11 @@ def test_flags_refuse_non_raster_points():
     """The binning's flag word (plain version): the raster grid passes,
     points in another order or moved off their voxel set NOT_RASTER, too
     small a bound OVER_BOUND; ``check_flags`` raises ValueError for
-    either, as an eager card call does after its one read."""
+    either, as a check after a CUDA graph's replay does. The routing of
+    ``raster_path``: only points declared the grid, as many as its voxels
+    and not flagged, take the raster mode; an eager call (the flag word
+    read) sends flagged ones to the general mode, while a capture (no read)
+    keeps the declared raster mode and its deferred check raises."""
     cfg = get_config("prob_gs6400_tiny")
     grid = cfg.grid
     batch = synthetic_batch(1, cfg.input_size, (grid.H, grid.W, grid.D),
@@ -149,14 +155,76 @@ def test_flags_refuse_non_raster_points():
     splat.check_flags(torch.tensor([0]))
     moved = pts.clone()
     moved[5] += grid.grid_size
+    nv = grid.num_voxels
     for bad in (pts.flip(0), moved):
         bits = splat.bin_flags_plain(bad, box, grid)
         assert bits == splat.NOT_RASTER
         with pytest.raises(ValueError, match="raster"):
             splat.check_flags(torch.tensor([bits]))
+        # eager: the general mode; captured: the raster mode, then a raise
+        assert not splat.raster_path(nv, grid, True, bits)
+        assert splat.raster_path(nv, grid, True, None)
+    assert splat.raster_path(nv, grid, True, 0)
+    for n_pts, declared in ((nv, False), (nv - 1, True), (2 * nv, True)):
+        for bits in (0, None):
+            assert not splat.raster_path(n_pts, grid, declared, bits)
     e = splat.bin_gaussians_plain(box, grid).num_entries
     assert splat.bin_flags_plain(pts, box, grid, e) == 0
     bits = splat.bin_flags_plain(pts, box, grid, e - 1)
     assert bits == splat.OVER_BOUND
     with pytest.raises(ValueError, match="bound"):
         splat.check_flags(torch.tensor([bits]))
+
+
+@pytest.mark.cuda
+def test_declared_grid_that_is_not_one_takes_the_general_mode():
+    """On the card, an eager ``splat_prob`` / ``splat_additive`` call that
+    declares the raster grid at points that are not it (the grid reversed)
+    raises nothing and takes the general mode, by the launch counters: one
+    Gaussian binning (its raster check read once), one points binning and
+    one general K4; the backward one general K7. Its outputs are those of
+    the same call not declaring the grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gaussianformer_tpu_torch.kernels import _lib
+    from gaussianformer_tpu_torch.ops.covariance import \
+        build_covariance_inverse6
+    from gaussianformer_tpu_torch.ops.splat import (splat_additive,
+                                                    splat_prob)
+    grid = get_config("prob_gs6400_tiny").grid
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    axes = [torch.arange(n, device="cuda") * grid.grid_size
+            + 0.5 * grid.grid_size + lo
+            for n, lo in zip((grid.H, grid.W, grid.D), grid.pc_min)]
+    pts = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1).reshape(
+        1, -1, 3).flip(1).contiguous()
+    p = 64
+    span = torch.tensor([grid.H, grid.W, grid.D], device="cuda") \
+        * grid.grid_size
+    means = (torch.tensor(grid.pc_min, device="cuda")
+             + torch.rand(1, p, 3, generator=gen, device="cuda") * span)
+    scales = torch.rand(1, p, 3, generator=gen, device="cuda") * 2 + 0.3
+    cov6 = build_covariance_inverse6(
+        scales, torch.randn(1, p, 4, generator=gen, device="cuda"))
+    sem = torch.softmax(torch.randn(1, p, 18, generator=gen, device="cuda"),
+                        -1)
+    opa = torch.rand(1, p, generator=gen, device="cuda")
+    for fn, fwd, bwd in ((splat_prob, "splat_points", "splat_points_bwd"),
+                         (splat_additive, "splat_points_additive",
+                          "splat_points_bwd_additive")):
+        outs = []
+        for declared in (True, False):
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (means, opa, sem, cov6)]
+            _lib.reset_launches()
+            out = fn(pts, *leaves[:3], scales, leaves[3], grid,
+                     grid_ordered=declared)
+            out[0].sum().backward()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in _lib.LAUNCHES.items() if v}
+            assert counts == {"splat_bin": 1, "splat_points_bin": 1,
+                              fwd: 1, bwd: 1}, counts
+            outs.append([o.detach() for o in out]
+                        + [t.grad for t in leaves])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
