@@ -176,7 +176,17 @@ Phases (each raises on failure, so the script exits nonzero):
             its plain version and the raster K7 (phase 6's tolerance), K4
             with 1% of the points past pc_range against its plain version,
             and, put back in order, against the raster K4; per-axis boxes on
-            Prob-256's phase 11 inputs, permuted.
+            Prob-256's phase 11 inputs, permuted. Then a LiDAR-like query
+            set (``data.synthetic.lidar_points(--seed)``: 10 sweeps of a
+            32-beam sensor, about 350,000 points, those past pc_range kept):
+            K4 prob (the flagship's tables) and additive and K7 additive
+            (gs25600_solid's, seeded cotangents) against their plain
+            versions at the tolerances above and a second call's bits,
+            with their times and the longest block's share of the launch.
+
+    python3 chip_smoke.py [--seed S]
+
+``--seed`` (default 0) seeds phase 18's LiDAR-like set and its cotangents.
 
 The second-to-last lines are the card's name and power limit and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -335,6 +345,13 @@ class Capture:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on "
+                                 "one NVIDIA GPU.")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 18's LiDAR-like query set and its "
+                         "cotangents")
+    opts = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -493,7 +510,7 @@ def main() -> int:
 
     # ---- 18. the splat's general mode: query points that are not the grid
     points = points_phase(get_config, build_segmentor, synthetic_batch, mods,
-                          rows, keep)
+                          rows, keep, opts.seed)
     del keep
     mark(18)
     entry = {k: v for k, v in entry.items() if not k.startswith("_")}
@@ -1400,7 +1417,7 @@ def held_within_two_steps(path, plain_path):
 
 
 def points_phase(get_config, build_segmentor, synthetic_batch, mods, rows,
-                 keep):
+                 keep, seed):
     """Phase 18: the splat's general mode (K4 and K7 at any query points).
     The flagship frame and the ``gs25600_solid`` train step with
     ``occ_xyz`` the grid twice as fine (5,120,000 points, 8 a voxel, not
@@ -1413,8 +1430,10 @@ def points_phase(get_config, build_segmentor, synthetic_batch, mods, rows,
     the permuted points with OUTSIDE_SHARE of them past ``pc_range``
     against its plain version, and without them, put back in order,
     against the raster K4; and per-axis boxes on Prob-256's phase 11
-    inputs. Appends the kernel rows to ``rows`` (those of no path
-    printed, not reported) and returns the summary numbers."""
+    inputs. Then, at the LiDAR-like points of ``lidar_points(seed)``, K4
+    prob and additive and K7 additive (:func:`lidar_case`). Appends the
+    kernel rows to ``rows`` (those of no path printed, not reported) and
+    returns the summary numbers."""
     import dataclasses
     import torch
     from gaussianformer_tpu_torch.data.synthetic import finer_points
@@ -1556,7 +1575,89 @@ def points_phase(get_config, build_segmentor, synthetic_batch, mods, rows,
     summary.update({f"{cfg.name}_{k}": v for k, v in train.items()})
     del model, fine, fwd, train, sub, sub_gl, sub_bins
     torch.cuda.empty_cache()
+
+    # ---- the LiDAR-like query set: the flagship's and the v1 step's tables
+    from gaussianformer_tpu_torch.data.synthetic import lidar_points
+    t0 = time.perf_counter()
+    pts = torch.from_numpy(lidar_points(seed)).cuda()
+    n = pts.shape[0]
+    grid = keep["k4"][1][4]
+    lo = torch.tensor(grid.pc_min, device="cuda")
+    span = torch.tensor([grid.H, grid.W, grid.D], device="cuda") \
+        * grid.grid_size
+    outside = int(((pts < lo) | (pts >= lo + span)).any(-1).sum().item())
+    log(f"# LiDAR-like set (seed {seed}): {n} points, {outside} past "
+        f"pc_range")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fn, args, kw = keep["k4"]
+    lidar = {}
+    lidar["k4_prob"] = lidar_case(
+        "splat_points_prob (LiDAR-like)", fn, (pts,) + args[1:],
+        {k: v for k, v in kw.items() if k != "bins"},
+        kw["bins"].capacity, splat)
+    lidar["k4_additive"] = lidar_case(
+        "splat_points_additive (LiDAR-like)", fn4, (pts,) + args4[1:], {},
+        cap, splat)
+    c = args7[3].shape[1]
+    gl = torch.randn(n, c, generator=gen, device="cuda")
+    lidar["k7_additive"] = lidar_case(
+        "splat_points_additive_backward (LiDAR-like)", fn7,
+        (pts,) + args7[1:5] + (gl, None) + args7[7:], {}, cap, splat)
+    lidar["points"], lidar["outside"] = n, outside
+    lidar["seconds"] = time.perf_counter() - t0
+    log(f"# LiDAR-like set: {lidar['seconds']:.1f} s")
+    summary["lidar"] = lidar
+    del pts, gl, fn4, args4, kw4, fn7, args7, kw7
+    torch.cuda.empty_cache()
     return summary
+
+
+def lidar_case(name, fn, args, lab, cap, splat) -> dict:
+    """One general-mode kernel at the LiDAR-like points (K4 when ``args``
+    are K4's six, else K7's nine) on bins sized by the path's bound: held
+    against its plain version (K4 prob as :func:`held_prob`, additive as
+    :func:`held_additive`; K7 within SUM_TOL of each output's largest
+    |ref|, the whole-grid Gaussian's row on its own), a second call's bits
+    against the first's; its time, its bound and the longest block's share
+    of its launch (K7: of its piece launch). Returns the numbers."""
+    import torch
+    k4 = len(args) == 6
+    box, grid = (args[2], args[4]) if k4 else (args[4], args[7])
+    bins = splat.bin_splat_cuda(args[0], box, grid, cap, grid_ordered=False)
+    times = {}
+    ctx = torch.inference_mode() if k4 else torch.no_grad()
+    with ctx:
+        got = fn(*args, **lab, bins=bins, block_times=times)
+        # (the additive K4 has no one_minus)
+        held_repeat(name, [t for t in got if t is not None],
+                    [t for t in fn(*args, **lab, bins=bins) if t is not None])
+        ms = cuda_ms(lambda: fn(*args, **lab, bins=bins), 5)
+        if k4:
+            ref, plain_ms = timed(lambda: splat.splat_accumulate_plain(
+                *args, **lab))
+            if args[5] == "prob":
+                held_prob(name, got, ref, splat)
+            else:
+                held_additive(name, got, ref, args[3].shape[1] - 2)
+        else:
+            ref, plain_ms = timed(lambda: splat.splat_backward_plain(*args))
+            held_close(name + " (all but the whole-grid Gaussian)",
+                       [t[:-1] for t in got], [t[:-1] for t in ref])
+            held_close(name + " (the whole-grid Gaussian)",
+                       [t[-1:] for t in got], [t[-1:] for t in ref])
+    pairs = splat_pairs(args[0], box, grid)
+    flops, nbytes = (k4_work(*args[:4], pairs, args[5] == "prob") if k4
+                     else k7_work(*args[:7], pairs))
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    share = splat.block_share(times["k4" if k4 else "k7"])
+    out = dict(ms=ms, plain_ms=plain_ms, aabb_pairs=pairs,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               longest_block_share=share)
+    log(f"# {name}: {ms:.4f} ms, plain {plain_ms:.1f} ms, {pairs} AABB "
+        f"pairs, bound {out['bound_ms']:.4f} ms ({out['bound_by']}); the "
+        f"longest block {share:.4f} of the launch")
+    return out
 
 
 def k4_work(points, gdata, box, sem_aug, pairs, prob: bool):
@@ -1923,13 +2024,13 @@ def splat_mode(points, box, grid, cap, mods) -> bool:
 def check_points_bins(points, grid, suffix, launches, mods, report):
     """The points binning of the splat's general mode
     (``csrc/splat_points_bin.cu``) against its plain version, every element
-    equal (the sorted order, the tiles' starts, the work items and the
-    tiles' order); its time (CUDA events), the work items and the largest
-    tile. Returns its kernels-line row."""
+    equal (the sorted order, each voxel's first place and the work items);
+    its time (CUDA events), the work items, the largest tile and voxel.
+    Returns its kernels-line row."""
     splat = mods.splat
     got = splat.bin_points_cuda(points, grid)
     ref, plain_ms = timed(lambda: splat.bin_points_plain(points, grid))
-    names = ("order", "tile_start", "items", "tile_order")
+    names = ("order", "voxel_start", "items")
     err = float(sum(
         getattr(got, k).numel() if getattr(got, k).shape !=
         getattr(ref, k).shape else
@@ -1938,10 +2039,10 @@ def check_points_bins(points, grid, suffix, launches, mods, report):
     stats = got.stats()
     ms = cuda_ms(lambda: splat.bin_points_cuda(points, grid), 10)
     # each input read once (the points), each output written once (the
-    # order, the tiles' starts and order, the items)
-    t = math.prod(splat.tile_counts(grid))
+    # order, each voxel's first place, the items)
+    k = math.prod(splat.tile_counts(grid)) * splat.TILE_VOXELS
     nbytes = (points.shape[0] * (12 + 4)
-              + ((t + 1) + t + stats["item_bound"] + 1) * 4)
+              + ((k + 1) + stats["item_bound"] + 1) * 4)
     row = dict(name="splat_points_bins" + suffix, route="cuda",
                source="gaussianformer_tpu_torch/csrc/splat_points_bin.cu",
                replaces="gaussianformer_tpu/ops/pallas/splat_kernel.py:334",
@@ -1951,7 +2052,8 @@ def check_points_bins(points, grid, suffix, launches, mods, report):
                bound_by="bytes", library_ms=None, report=report)
     log(f"# {row['name']}: {stats['points']} points in "
         f"{stats['tiles_with_points']} tiles (largest {stats['max_tile_points']}"
-        f"), {stats['items']} work items (bound {stats['item_bound']}); "
+        f", largest voxel {stats['max_voxel_points']}), {stats['items']} "
+        f"work items (bound {stats['item_bound']}); "
         f"{err:.0f} elements differ from the plain bins; binning {ms:.4f} "
         f"ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
         f"(bytes)")

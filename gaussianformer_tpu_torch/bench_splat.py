@@ -26,6 +26,27 @@ K4's sums, one_minus and labels are the parent's bits and how far K7's
 gradients are from the parent's. Times are CUDA events over repeated calls
 after a warm-up. Prints the card's name and power limit and one JSON line.
 Needs a CUDA device and ``nvcc``.
+
+    python -m gaussianformer_tpu_torch.bench_splat --points finer lidar
+        [--parent DIR] [--seed S]
+
+times the general mode instead (query points that are not the splat
+grid): the points binning, K4 and K7. ``finer``: the flagship frame's
+splat at ``occ_xyz`` twice as fine as its grid (5,120,000 points; K4
+prob), the ``gs25600_solid`` frame and train step there (K4 and K7
+additive), and K7 prob on the flagship's raster train-step inputs with
+the points permuted (beside the raster K7 on the same cotangents).
+``lidar``: the same Gaussians at the LiDAR-like points of
+``data.synthetic.lidar_points(seed)``, K7 with seeded random cotangents.
+Per kernel: ms (the kernel alone on bins built beforehand; K4 also with
+both binnings), the bound, the AABB pairs, and the lane efficiency and
+the share of entries skipped whole of each tree's design (modelled from
+the bins: in-box pairs over the pairs a design evaluates or tests).
+``--parent DIR`` binds the general-mode entry points of another tree's
+``csrc`` (the points binning with its tile order, K4 on items in input
+order, K7 a block per tile) and times them in turns with this tree's,
+parent, change, change, parent, on the same inputs, with the largest
+difference of their outputs.
 """
 from __future__ import annotations
 
@@ -265,7 +286,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another tree's csrc directory to time beside")
+    ap.add_argument("--points", nargs="+", choices=("finer", "lidar"),
+                    default=None, help="time the general mode on these "
+                    "query sets")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the LiDAR-like set and the cotangents")
     args = ap.parse_args(argv)
+    if args.points:
+        from .bench_splat_points import main as points_main
+        return points_main(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(

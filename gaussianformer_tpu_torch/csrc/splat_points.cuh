@@ -4,10 +4,15 @@
 // ops/splat.py::SplatGridSpec.voxelize (floor, clamped into the grid), so a
 // point outside the range falls into a border voxel, as in the JAX
 // package; its tile is the voxel's tile of splat_bin.cuh. The binning
-// sorts the points stably by tile (each tile's points in input order) and
-// cuts each tile's list into work items of at most TILE_VOXELS points; the
-// Gaussians keep the tile bins of splat_bin.cu, and every point of a tile
-// lies in that tile, so a COVERS entry holds all of them.
+// sorts the points stably by voxel, tile-major: by their key, the tile's
+// index times TILE_VOXELS plus the voxel's place in the tile (local_code,
+// z fastest), so that the points of one voxel are adjacent in input order
+// and the points of any box within a tile are one run per (x, y) column.
+// It writes each key's first sorted place (voxel_start, T * TILE_VOXELS +
+// 1 words) and cuts each tile's points into work items of at most
+// TILE_VOXELS. The Gaussians keep the tile bins of splat_bin.cu, and every
+// point of a tile lies in that tile, so a COVERS entry holds all of
+// them.
 #pragma once
 
 #include "splat_bin.cuh"
@@ -51,11 +56,25 @@ __device__ __forceinline__ int tile_index(int3 v, const Grid& g) {
 }
 
 // a voxel's place in its tile, packed: x (3 bits) | y (3 bits) | z (4 bits)
-constexpr int CODE_X = 7, CODE_Y = 4;
+constexpr int CODE_X = 7, CODE_Y = 4, CODE_BITS = 10;
 static_assert(TX == 8 && TY == 8 && TZ == 16, "the packing of local_code");
+static_assert(TILE_VOXELS == 1 << CODE_BITS, "a key's place bits");
 
 __device__ __forceinline__ int local_code(int3 v) {
   return (v.x % TX) << CODE_X | (v.y % TY) << CODE_Y | v.z % TZ;
+}
+
+// a point's sort key: its tile, then its voxel's place in the tile
+__device__ __forceinline__ int point_key(int3 v, const Grid& g) {
+  return tile_index(v, g) << CODE_BITS | local_code(v);
+}
+
+// the device's nanosecond clock (a block's start and end, for the share of
+// its launch that the longest block takes)
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
 // Whether the packed place `code` lies in the box [lo, hi] given in the
@@ -65,32 +84,6 @@ __device__ __forceinline__ bool code_in(int code, int3 lo, int3 hi) {
             z = code & (TZ - 1);
   return x >= lo.x && x <= hi.x && y >= lo.y && y <= hi.y && z >= lo.z &&
          z <= hi.z;
-}
-
-// The bounds of a work item's places (min x, y, z, max x, y, z), in shared
-// memory: reset, then every thread adds its points' places (int shared
-// atomics: a min or max does not depend on the order).
-__device__ __forceinline__ void bounds_reset(int* s_bounds) {
-  if (threadIdx.x < 3) s_bounds[threadIdx.x] = 1 << 20;
-  if (threadIdx.x >= 3 && threadIdx.x < 6) s_bounds[threadIdx.x] = -1;
-}
-
-__device__ __forceinline__ void bounds_add(int* s_bounds, int code) {
-  const int c[3] = {code >> CODE_X, (code >> CODE_Y) & (TY - 1),
-                    code & (TZ - 1)};
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    atomicMin(s_bounds + a, c[a]);
-    atomicMax(s_bounds + 3 + a, c[a]);
-  }
-}
-
-// Whether the box [lo, hi] (tile coordinates) misses every place of the
-// item's bounds.
-__device__ __forceinline__ bool misses(const int* s_bounds, int3 lo,
-                                       int3 hi) {
-  return hi.x < s_bounds[0] || hi.y < s_bounds[1] || hi.z < s_bounds[2] ||
-         lo.x > s_bounds[3] || lo.y > s_bounds[4] || lo.z > s_bounds[5];
 }
 
 }  // namespace splat

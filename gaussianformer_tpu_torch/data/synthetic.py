@@ -1,9 +1,10 @@
 """Synthetic data with the input contract of the nuScenes loader, made
 from a seed with numpy: the dataset and batch of
 gaussianformer_tpu/data/synthetic.py and ``__graft_entry__._synthetic_batch``,
-:func:`finer_points` (the batch at query points finer than the splat grid)
-and :func:`write_nuscenes_files`, a small nuScenes-shaped set on disk for
-the file pipeline (``data.dataset.NuScenesDataset``)."""
+:func:`finer_points` (the batch at query points finer than the splat grid),
+:func:`lidar_points` (a LiDAR-like query set) and
+:func:`write_nuscenes_files`, a small nuScenes-shaped set on disk for the
+file pipeline (``data.dataset.NuScenesDataset``)."""
 from __future__ import annotations
 
 import os
@@ -103,6 +104,64 @@ def finer_points(batch: Dict[str, torch.Tensor], factor: int = 2,
     return dict(batch, occ_xyz=xyz.expand(b, *xyz.shape).contiguous(),
                 occ_label=repeat(batch["occ_label"]),
                 occ_cam_mask=repeat(batch["occ_cam_mask"]))
+
+
+#: nuScenes' lidar, a Velodyne HDL-32E: 32 beams evenly spaced in
+#: elevation over this range (degrees), mounted this high (m)
+LIDAR_ELEVATION = (-30.67, 10.67)
+LIDAR_HEIGHT = 1.84
+
+
+def lidar_points(seed: int = 0, sweeps: int = 10, azimuths: int = 1200,
+                 boxes: int = 60, speed: float = 0.5,
+                 max_range: float = 100.0) -> np.ndarray:
+    """A LiDAR-like query set [N, 3] float32 (ego frame, ground at z = 0),
+    from ``seed`` with numpy: ``sweeps`` aggregated sweeps of a 32-beam
+    spinning sensor (:data:`LIDAR_ELEVATION`, :data:`LIDAR_HEIGHT`),
+    ``azimuths`` rays a beam and sweep, the ego moving ``speed`` m along x
+    between sweeps. Each ray returns its nearest hit within ``max_range``
+    on the ground plane or on one of ``boxes`` random axis-aligned boxes
+    (vehicles and buildings) and a building's face 52 m ahead, past the
+    occupancy range, with 2 cm of range noise; a ray that hits nothing
+    returns nothing. Returns past the range are kept (about 350,000 points
+    at the defaults): dense near the ego, and crowded in the border voxels
+    where the far returns clamp (the face's into a few border tiles)."""
+    rng = np.random.RandomState(seed)
+    lo_hi = [(np.array([52.0, -6.0, 0.0]), np.array([60.0, 6.0, 15.0]))]
+    for k in range(boxes):
+        big = k % 5 == 0   # a building among vehicles
+        size = (rng.uniform(8, 20, 3) * (1, 1, 0.8) if big
+                else np.array([rng.uniform(3.5, 5.0), rng.uniform(1.7, 2.1),
+                               rng.uniform(1.4, 2.0)]))
+        while True:
+            c = rng.uniform(-60, 60, 2)
+            if np.abs(c).max() > size[:2].max() / 2 + 4.0:
+                break
+        lo = np.array([c[0] - size[0] / 2, c[1] - size[1] / 2, 0.0])
+        lo_hi.append((lo, lo + size))
+    box_lo = np.stack([b[0] for b in lo_hi])
+    box_hi = np.stack([b[1] for b in lo_hi])
+    elev = np.deg2rad(np.linspace(*LIDAR_ELEVATION, 32))
+    out = []
+    for s in range(sweeps):
+        origin = np.array([-speed * (sweeps - 1 - s), 0.0, LIDAR_HEIGHT])
+        az = (np.arange(azimuths) + rng.rand()) * (2 * np.pi / azimuths)
+        e, a = np.meshgrid(elev, az, indexing="ij")
+        d = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a),
+                      np.sin(e)], -1).reshape(-1, 3)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = np.where(d[:, 2] < 0, -origin[2] / d[:, 2], np.inf)
+            inv = 1.0 / d
+            t0 = (box_lo[None] - origin) * inv[:, None]
+            t1 = (box_hi[None] - origin) * inv[:, None]
+        near = np.nanmax(np.minimum(t0, t1), -1)
+        far = np.nanmin(np.maximum(t0, t1), -1)
+        hit = (far >= near) & (near > 0)
+        t = np.minimum(t, np.where(hit, near, np.inf).min(-1))
+        keep = t < max_range
+        t = t[keep] + rng.randn(int(keep.sum())) * 0.02
+        out.append(origin + d[keep] * t[:, None])
+    return np.concatenate(out).astype(np.float32)
 
 
 def _yaw(a: float) -> np.ndarray:

@@ -197,23 +197,25 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     FP = ctypes.POINTER(F)
     so.gf_splat_points_bin_sizes.argtypes = [L, I, I, I, ctypes.POINTER(L)]
     so.gf_splat_points_bin_sizes.restype = I
-    so.gf_splat_points_bin.argtypes = [P, L, FP, F, I, I, I, P, P, P, P, P,
-                                       P]
+    so.gf_splat_points_bin.argtypes = [P, L, FP, F, I, I, I, P, P, P, P, P]
     so.gf_splat_points_bin.restype = I
     so.gf_splat_points_forward.argtypes = [P, FP, F, I, I, I, P, P, P, I, P,
                                            P, P, I, P, P, P, P, P, I, F, I,
-                                           P]
+                                           P, P]
     so.gf_splat_points_forward.restype = I
     so.gf_splat_points_forward_additive.argtypes = [P, FP, F, I, I, I, P, P,
                                                     P, I, P, P, P, I, P, P,
-                                                    P, P, P]
+                                                    P, P, P, P]
     so.gf_splat_points_forward_additive.restype = I
-    so.gf_splat_points_backward.argtypes = [P, FP, F, I, I, I, P, P, P, P,
-                                            P, P, P, P, P, I, P, P, P, P, P]
+    so.gf_splat_points_backward_sizes.argtypes = [L, L, I, ctypes.POINTER(L)]
+    so.gf_splat_points_backward_sizes.restype = I
+    so.gf_splat_points_backward.argtypes = [P, L, FP, F, I, I, I, P, P, P,
+                                            P, P, P, P, P, I, P, P, P, L, P,
+                                            P, P, P]
     so.gf_splat_points_backward.restype = I
-    so.gf_splat_points_backward_additive.argtypes = [P, FP, F, I, I, I, P,
-                                                     P, P, P, P, P, P, P, I,
-                                                     P, P, P, P, P]
+    so.gf_splat_points_backward_additive.argtypes = [P, L, FP, F, I, I, I, P,
+                                                     P, P, P, P, P, P, I, P,
+                                                     P, P, L, P, P, P, P]
     so.gf_splat_points_backward_additive.restype = I
     return so
 

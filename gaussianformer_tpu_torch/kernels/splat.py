@@ -34,7 +34,7 @@ plain version :func:`bin_gaussians_plain`) in one of two modes. The raster
 mode (``csrc/splat.cu``, ``csrc/splat_bwd.cu``) takes the points as the
 raster voxel grid, one per voxel, x slowest. The general mode
 (``csrc/splat_points.cu``, ``csrc/splat_points_bwd.cu``; the TPU kernel's
-``zrun = 0``) takes any points: they are binned by tile as well
+``zrun = 0``) takes any points: they are binned by voxel, tile-major
 (:class:`PointBins`, ``csrc/splat_points_bin.cu`` through
 :func:`bin_points_cuda`; plain version :func:`bin_points_plain`), and the
 bins carry them (``SplatBins.points``). :func:`bin_splat_cuda` chooses the
@@ -470,22 +470,31 @@ def bin_splat_cuda(points, box, grid, max_entries=None,
 
 @dataclasses.dataclass(frozen=True)
 class PointBins:
-    """Query points binned by voxel tile (tiles numbered as
-    :class:`SplatBins` numbers them), each point in the tile of its voxel
-    (``SplatGridSpec.voxelize``: floor, clamped into the grid). ``order``
-    [N] int32: the point indices sorted stably by tile; tile t's points are
-    ``order[tile_start[t]:tile_start[t + 1]]``, in input order. ``items``
-    [I + 1] int32: the work items of K4's general mode, each tile's points
-    cut into runs of at most :data:`TILE_VOXELS`; an item is the place in
-    ``order`` of its first point, the items in tile order, -1 past their
-    count, which is ``items[I]`` (I: :func:`points_items_bound`).
-    ``tile_order`` [T] int32: the tiles by descending count of points, ties
-    by index (K7's general mode takes them in this order)."""
+    """Query points binned by voxel, tile-major (tiles numbered as
+    :class:`SplatBins` numbers them), each point in its voxel
+    (``SplatGridSpec.voxelize``: floor, clamped into the grid). A point's
+    key is its tile times :data:`TILE_VOXELS` plus its voxel's place in the
+    tile (x, y, z packed, z fastest: :func:`point_keys`). ``order`` [N]
+    int32: the point indices sorted stably by key, so a voxel's points keep
+    their input order. ``voxel_start`` [K + 1] int32 (K = tiles x
+    :data:`TILE_VOXELS`): key k's points are
+    ``order[voxel_start[k]:voxel_start[k + 1]]``, so a box's points within
+    a tile are one run per (x, y) column and a tile's are one run.
+    ``items`` [I + 1] int32: the work items of K4's general mode, each
+    tile's points cut into runs of at most :data:`TILE_VOXELS`; an item is
+    the place in ``order`` of its first point, the items in tile order, -1
+    past their count, which is ``items[I]`` (I:
+    :func:`points_items_bound`)."""
     order: torch.Tensor
-    tile_start: torch.Tensor
+    voxel_start: torch.Tensor
     items: torch.Tensor
-    tile_order: torch.Tensor
     grid_dims: tuple
+
+    @property
+    def tile_start(self) -> torch.Tensor:
+        """[T + 1]: tile t's points are ``order[tile_start[t]:tile_start[t
+        + 1]]``."""
+        return self.voxel_start[::TILE_VOXELS]
 
     @property
     def num_items(self) -> int:
@@ -493,18 +502,48 @@ class PointBins:
         return int(self.items[-1].item())
 
     def stats(self) -> dict:
-        """Points, work items, tiles with points and the largest tile's
-        count (host reads)."""
+        """Points, work items, tiles with points, the largest tile's count
+        and the largest voxel's (host reads)."""
         counts = self.tile_start[1:] - self.tile_start[:-1]
+        per_voxel = self.voxel_start[1:] - self.voxel_start[:-1]
         return dict(points=self.order.shape[0], items=self.num_items,
                     item_bound=self.items.shape[0] - 1,
                     tiles_with_points=int((counts > 0).sum().item()),
-                    max_tile_points=int(counts.max().item()))
+                    max_tile_points=int(counts.max().item()),
+                    max_voxel_points=int(per_voxel.max().item()))
 
 
 #: points of a K4 work item in the general mode (``TILE_VOXELS`` of
-#: ``csrc/splat_bin.cuh``)
+#: ``csrc/splat_bin.cuh``), and the places of a tile's keys
 TILE_VOXELS = math.prod(TILE)
+#: K4's blocks a work item in the general mode, by variant (``HALVES`` of
+#: ``csrc/splat_points.cu``)
+K4_BLOCKS_PER_ITEM = {"prob": 2, "additive": 1}
+#: K7's general mode (``csrc/splat_points_bwd.cu``): the fewest points of a
+#: piece (``PIECE``; pieces of ``POINTS_PIECE << level`` points), the
+#: levels (``LEVELS``; the last one a piece an entry) and the entries of a
+#: group, a block's (``group_of``), by variant
+POINTS_PIECE, POINTS_LEVELS = 1024, 12
+POINTS_GROUP = {"prob": 32, "additive": 8}
+
+
+def points_piece_level(points_per_entry, capacity: int,
+                       variant: str = "prob") -> int:
+    """The level K7's general mode takes for entries of these point
+    counts (a 1-D tensor, in entry order) with room for ``capacity``
+    entries: the smallest whose blocks (a group of the variant's
+    POINTS_GROUP entries makes as many as its largest entry's pieces) fit
+    the budget, twice the groups the room holds, plus one."""
+    group = POINTS_GROUP[variant]
+    budget = 2 * -(-capacity // group) + 1
+    n = points_per_entry.long()
+    pad = (-n.shape[0]) % group
+    for level in range(POINTS_LEVELS - 1):
+        pieces = (-(-n // (POINTS_PIECE << level))).clamp_min(1)
+        pieces = torch.cat([pieces, pieces.new_zeros(pad)])
+        if int(pieces.reshape(-1, group).amax(1).sum()) <= budget:
+            return level
+    return POINTS_LEVELS - 1
 
 
 def points_items_bound(n: int, grid) -> int:
@@ -515,18 +554,29 @@ def points_items_bound(n: int, grid) -> int:
     return n // TILE_VOXELS + min(n, nt[0] * nt[1] * nt[2])
 
 
+def point_keys(points, grid):
+    """Each point's key [N] int64: its voxel's tile times
+    :data:`TILE_VOXELS` plus the voxel's place in the tile, x | y | z in
+    3, 3 and 4 bits (``local_code`` of ``csrc/splat_points.cuh``)."""
+    nt = tile_counts(grid)
+    v = grid.voxelize(points).long()
+    tile = ((v[:, 0] // TILE[0] * nt[1] + v[:, 1] // TILE[1]) * nt[2]
+            + v[:, 2] // TILE[2])
+    code = ((v[:, 0] % TILE[0]) * TILE[1] + v[:, 1] % TILE[1]) * TILE[2] \
+        + v[:, 2] % TILE[2]
+    return tile * TILE_VOXELS + code
+
+
 def bin_points_plain(points, grid) -> PointBins:
     """The bins of :class:`PointBins` by plain tensor operations (a stable
-    sort by tile, each tile's start by a search, its items enumerated)."""
+    sort by key, each key's start by a search, the items enumerated)."""
     dev = points.device
     nt = tile_counts(grid)
     tiles = nt[0] * nt[1] * nt[2]
-    vox = grid.voxelize(points)
-    key = ((vox[:, 0] // TILE[0] * nt[1] + vox[:, 1] // TILE[1]) * nt[2]
-           + vox[:, 2] // TILE[2])
-    sorted_key, order = torch.sort(key, stable=True)
-    start = torch.searchsorted(sorted_key,
-                               torch.arange(tiles + 1, device=dev))
+    sorted_key, order = torch.sort(point_keys(points, grid), stable=True)
+    vstart = torch.searchsorted(
+        sorted_key, torch.arange(tiles * TILE_VOXELS + 1, device=dev))
+    start = vstart[::TILE_VOXELS]
     counts = start[1:] - start[:-1]
     per = -(-counts // TILE_VOXELS)
     first = torch.cumsum(per, 0) - per
@@ -537,55 +587,61 @@ def bin_points_plain(points, grid) -> PointBins:
     items = torch.cat([found, found.new_full((bound - found.shape[0],), -1),
                        found.new_tensor([found.shape[0]])])
     i32 = torch.int32
-    return PointBins(order.to(i32), start.to(i32), items.to(i32),
-                     torch.argsort(-counts, stable=True).to(i32),
+    return PointBins(order.to(i32), vstart.to(i32), items.to(i32),
                      (grid.H, grid.W, grid.D))
 
 
 def bin_points_cuda(points, grid) -> PointBins:
     """Launch ``csrc/splat_points_bin.cu`` in one call with no host read: a
-    stable radix sort of the points by tile, the tiles' starts, the work
-    items and the tiles' order, in arrays that the number of points
-    bounds. Grids of more than 4096 tiles are not taken."""
+    stable radix sort of the points by key, each key's first place and the
+    work items, in arrays that the number of points and the grid bound.
+    Grids of more than 4096 tiles are not taken."""
     name = "splat_points_bins"
     _lib.require_cuda(name, points=points)
     _lib.require_dtype(name, "points", points, torch.float32)
     n = points.shape[0]
     if points.shape != (n, 3):
         raise ValueError(f"{name}: bad points shape {tuple(points.shape)}")
-    nt = tile_counts(grid)
-    tiles = nt[0] * nt[1] * nt[2]
     lib = _lib.lib()
-    sizes = (ctypes.c_longlong * 2)()
+    sizes = (ctypes.c_longlong * 3)()
     _lib.check(lib.gf_splat_points_bin_sizes(n, grid.H, grid.W, grid.D,
                                              sizes), name)
-    bound = sizes[1]
+    bound, keys = sizes[1], sizes[2]
     i32 = dict(dtype=torch.int32, device=points.device)
     ws = torch.empty(sizes[0], **i32)
-    out = torch.empty(n + (tiles + 1) + (bound + 1) + tiles, **i32)
-    order, rest = out[:n], out[n:]
-    start, rest = rest[:tiles + 1], rest[tiles + 1:]
-    items, tile_order = rest[:bound + 1], rest[bound + 1:]
+    out = torch.empty(n + (keys + 1) + (bound + 1), **i32)
+    order, vstart, items = out[:n], out[n:n + keys + 1], out[n + keys + 1:]
     pc = (ctypes.c_float * 3)(*grid.pc_min)
     _lib.check(lib.gf_splat_points_bin(
         points.data_ptr(), n, pc, float(grid.grid_size), grid.H, grid.W,
-        grid.D, ws.data_ptr(), order.data_ptr(), start.data_ptr(),
-        items.data_ptr(), tile_order.data_ptr(), _lib.stream_ptr(points)),
-        name)
+        grid.D, ws.data_ptr(), order.data_ptr(), vstart.data_ptr(),
+        items.data_ptr(), _lib.stream_ptr(points)), name)
     _lib.LAUNCHES["splat_points_bin"] += 1
-    return PointBins(order, start, items, tile_order,
-                     (grid.H, grid.W, grid.D))
+    return PointBins(order, vstart, items, (grid.H, grid.W, grid.D))
+
+
+def _block_ns(block_times, key, blocks, device):
+    """The kernel's block-timing buffer where ``block_times`` (a dict) asks
+    for it: uint64 [blocks, 2] (each block's first and last %globaltimer
+    reading) kept there under ``key``; else a null pointer."""
+    if block_times is None:
+        return None
+    buf = torch.zeros(blocks, 2, dtype=torch.int64, device=device)
+    block_times[key] = buf
+    return buf.data_ptr()
 
 
 def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
                           variant: str = "prob", *,
                           label_mode: str = "combine", thresh: float = 0.5,
-                          empty_label: int = 17, bins: SplatBins = None):
+                          empty_label: int = 17, bins: SplatBins = None,
+                          block_times: dict = None):
     """Launch K4 on ``bins`` (this splat's :class:`SplatBins`, built here
     by :func:`bin_splat_cuda` when not given): ``csrc/splat.cu``, one block
     per voxel tile over the raster grid's points, or, where the bins carry
     the points' bins, ``csrc/splat_points.cu``, one block per work item of
-    any points."""
+    any points. ``block_times``: a dict that receives the general mode's
+    block times under ``"k4"`` (see :func:`block_share`)."""
     _check_variant(variant, label_mode)
     name = "splat_accumulate"
     _lib.require_cuda(name, points=points, gdata=gdata, box=box,
@@ -627,20 +683,23 @@ def splat_accumulate_cuda(points, gdata, box, sem_aug, grid,
                                                  stream)
         key = "splat" if prob else "splat_additive"
     else:
+        bound = pb.items.shape[0] - 1
         common = (points.data_ptr(), (ctypes.c_float * 3)(*grid.pc_min),
                   float(grid.grid_size), grid.H, grid.W, grid.D,
-                  pb.order.data_ptr(), pb.tile_start.data_ptr(),
-                  pb.items.data_ptr(), pb.items.shape[0] - 1,
-                  gdata.data_ptr(), box.data_ptr(), sem_aug.data_ptr(),
-                  ca - 2, bins.tile_start.data_ptr(), bins.entries.data_ptr(),
+                  pb.order.data_ptr(), pb.voxel_start.data_ptr(),
+                  pb.items.data_ptr(), bound, gdata.data_ptr(),
+                  box.data_ptr(), sem_aug.data_ptr(), ca - 2,
+                  bins.tile_start.data_ptr(), bins.entries.data_ptr(),
                   acc.data_ptr())
+        times = _block_ns(block_times, "k4",
+                          K4_BLOCKS_PER_ITEM[variant] * bound, points.device)
         if prob:
             code = lib.gf_splat_points_forward(
                 *common, one_minus.data_ptr(), labels.data_ptr(),
-                *label_args, stream)
+                *label_args, times, stream)
         else:
             code = lib.gf_splat_points_forward_additive(
-                *common, labels.data_ptr(), stream)
+                *common, labels.data_ptr(), times, stream)
         key = "splat_points" if prob else "splat_points_additive"
     _lib.check(code, name)
     _lib.LAUNCHES[key] += 1
@@ -761,17 +820,19 @@ TILE_LAUNCH, FOLD_LAUNCH = 1, 2
 
 def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid,
                         variant: str = "prob", *, bins: SplatBins = None,
-                        parts: int = TILE_LAUNCH | FOLD_LAUNCH):
+                        parts: int = TILE_LAUNCH | FOLD_LAUNCH,
+                        block_times: dict = None):
     """Launch K7 on ``bins`` (the forward's :class:`SplatBins`, built here
-    by :func:`bin_splat_cuda` when not given): per voxel tile, each binned
-    Gaussian's sums into its slot of a workspace (entries x (10 + C)
-    floats) by ``csrc/splat_bwd.cu``'s tile launch over the raster grid's
-    points or, where the bins carry the points' bins, by
-    ``csrc/splat_points_bwd.cu`` over the tile's points in runs of at most
-    :data:`TILE_VOXELS`; then ``csrc/splat_bwd.cu``'s fold per Gaussian in
-    a fixed order; no atomics. ``scalars`` is None for the additive
-    variant. ``parts`` selects the launches (to time them apart; with one
-    left out the outputs are not written)."""
+    by :func:`bin_splat_cuda` when not given): each binned Gaussian's sums
+    into its entry's slot of a workspace (entries x (10 + C) floats) by
+    ``csrc/splat_bwd.cu``'s tile launch over the raster grid's points or,
+    where the bins carry the points' bins, by ``csrc/splat_points_bwd.cu``
+    over each entry's box's runs of the sorted points, in pieces; then
+    ``csrc/splat_bwd.cu``'s fold per Gaussian in a fixed order; no atomics.
+    ``scalars`` is None for the additive variant. ``parts`` selects the
+    launches (to time them apart; with one left out the outputs are not
+    written). ``block_times``: a dict that receives the general mode's
+    piece launch's block times under ``"k7"`` (see :func:`block_share`)."""
     _check_variant(variant)
     name = "splat_backward"
     p, c = sem.shape
@@ -822,20 +883,37 @@ def splat_backward_cuda(points, gdata, opa, sem, box, gl, scalars, grid,
         key = "splat_bwd" if prob else "splat_bwd_additive"
     else:
         if parts & TILE_LAUNCH:
+            sizes = (ctypes.c_longlong * 2)()
+            _lib.check(lib.gf_splat_points_backward_sizes(
+                n, bins.capacity, c, sizes), name)
+            ws = torch.empty(sizes[0], **f32)
+            times = _block_ns(block_times, "k7", sizes[1], points.device)
             fn = (lib.gf_splat_points_backward if prob
                   else lib.gf_splat_points_backward_additive)
             _lib.check(fn(
-                points.data_ptr(), (ctypes.c_float * 3)(*grid.pc_min),
+                points.data_ptr(), n, (ctypes.c_float * 3)(*grid.pc_min),
                 float(grid.grid_size), grid.H, grid.W, grid.D,
-                pb.order.data_ptr(), pb.tile_start.data_ptr(),
-                pb.tile_order.data_ptr(), *head[1:], *scal, c,
-                bins.tile_start.data_ptr(), bins.entries.data_ptr(),
-                bins.slot.data_ptr(), work.data_ptr(), stream), name)
+                pb.order.data_ptr(), pb.voxel_start.data_ptr(), *head[1:],
+                *scal, c, bins.tile_start.data_ptr(), bins.entries.data_ptr(),
+                bins.slot.data_ptr(), bins.capacity, work.data_ptr(),
+                ws.data_ptr(), times, stream), name)
         if parts & FOLD_LAUNCH:
             raster(FOLD_LAUNCH)   # the fold alone: the same per-entry slots
         key = "splat_points_bwd" if prob else "splat_points_bwd_additive"
     _lib.LAUNCHES[key] += 1
     return gmu, gopa, gsem, gcov
+
+
+def block_share(times) -> float:
+    """The longest block's share of its launch, from a ``block_times``
+    buffer: the longest (last - first) reading over the launch's span (the
+    last block's end less the first block's start); blocks that wrote
+    nothing are left out."""
+    t = times[times[:, 1] > 0].double()
+    if t.shape[0] == 0:
+        return 0.0
+    span = (t[:, 1].max() - t[:, 0].min()).clamp_min(1.0)
+    return ((t[:, 1] - t[:, 0]).max() / span).item()
 
 
 def splat_backward(points, gdata, opa, sem, box, gl, scalars, grid,

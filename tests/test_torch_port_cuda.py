@@ -806,7 +806,9 @@ def _points_case(gen, case):
     own centres shuffled with one in ten moved past ``pc_range`` (they fall
     into border voxels); ``crowded``, 3000 random points of which 2000 in
     one corner voxel (a tile of more than ``TILE_VOXELS`` points); ``odd``,
-    1001 random points, some outside."""
+    1001 random points, some outside; ``pileup``, 6000 points in one voxel
+    and 500 random ones (K7 cuts the boxes that hold the voxel into
+    pieces)."""
     grid = _splat_case(gen)[0]
     lo = torch.tensor(grid.pc_min, device="cuda")
     span = torch.tensor([grid.H, grid.W, grid.D], device="cuda") * 0.5
@@ -823,6 +825,10 @@ def _points_case(gen, case):
         pts[:k] += (torch.rand(k, 3, generator=gen, device="cuda") - 0.5) \
             * span * 3
         return pts.contiguous()
+    if case == "pileup":
+        pts = lo + torch.rand(6500, 3, generator=gen, device="cuda") * span
+        pts[:6000] = lo + torch.tensor([3.2, 7.7, 1.4], device="cuda")
+        return pts.contiguous()
     n = 3000 if case == "crowded" else 1001
     pts = lo - 0.2 * span + torch.rand(n, 3, generator=gen, device="cuda") \
         * span * 1.4
@@ -832,14 +838,14 @@ def _points_case(gen, case):
     return pts.contiguous()
 
 
-POINTS_CASES = ["fine", "outside", "crowded", "odd"]
+POINTS_CASES = ["fine", "outside", "crowded", "odd", "pileup"]
 
 
 @pytest.mark.parametrize("case", POINTS_CASES)
 def test_splat_points_bins_match_plain(gen, case):
-    """The points binning (one sort pass here: 60 tiles) gives the plain
-    version's bins in every element, with no host read, and again on a
-    second call."""
+    """The points binning (two sort passes here: 60 tiles x 1024 places)
+    gives the plain version's bins in every element, with no host read,
+    and again on a second call."""
     grid = _splat_case(gen)[0]
     pts = _points_case(gen, case)
     ref = splat.bin_points_plain(pts, grid)
@@ -848,17 +854,19 @@ def test_splat_points_bins_match_plain(gen, case):
         got = splat.bin_points_cuda(pts, grid)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    for name in ("order", "tile_start", "items", "tile_order"):
+    for name in ("order", "voxel_start", "items"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
     again = splat.bin_points_cuda(pts, grid)
     assert torch.equal(again.order, got.order)
-    if case == "crowded":
+    if case in ("crowded", "pileup"):
         assert got.stats()["max_tile_points"] > splat.TILE_VOXELS
+    if case == "pileup":
+        assert got.stats()["max_voxel_points"] >= 6000
 
 
 def test_splat_points_bins_two_passes(gen):
-    """A grid of more than 1024 tiles sorts in two radix passes: the bins
-    still equal the plain ones."""
+    """A grid of more than 1024 tiles sorts in three radix passes (21 key
+    bits): the bins still equal the plain ones."""
     grid = SplatGridSpec(H=192, W=192, D=32, pc_min=(-48.0, -48.0, -8.0),
                          grid_size=0.5)
     assert math.prod(splat.tile_counts(grid)) > 1024
@@ -867,7 +875,7 @@ def test_splat_points_bins_two_passes(gen):
            - torch.tensor([52.0, 52.0, 9.0], device="cuda")).contiguous()
     got = splat.bin_points_cuda(pts, grid)
     ref = splat.bin_points_plain(pts, grid)
-    for name in ("order", "tile_start", "items", "tile_order"):
+    for name in ("order", "voxel_start", "items"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
 
 
@@ -936,6 +944,80 @@ def test_splat_points_kernels_match_plain(gen, variant, case):
             _close(gt[-1], rf[-1], SUM_TOL, name + " of the whole-grid box")
         else:
             _close(gt, rf, SUM_TOL, name)
+
+
+@pytest.mark.parametrize("variant", ["prob", "additive"])
+def test_splat_points_backward_in_pieces(gen, variant):
+    """K7's general mode on 40,000 points piled into one voxel and 2000
+    random ones, with the entries' room cut to their count, so that the
+    pieces of the smallest size overflow the piece budget (twice the
+    groups of entries the room holds) and a larger size is taken: the
+    plain version's sums to 1e-3, a second call and a CUDA graph's replay
+    give the same bits, and the piece launch's longest block is timed."""
+    grid, opa, sem, tables = _points_tables(gen, variant)
+    lo = torch.tensor(grid.pc_min, device="cuda")
+    span = torch.tensor([grid.H, grid.W, grid.D], device="cuda") * 0.5
+    pts = lo + torch.rand(42000, 3, generator=gen, device="cuda") * span
+    pts[:40000] = lo + torch.tensor([6.2, 4.7, 1.4], device="cuda")
+    pts = pts.contiguous()
+    e = splat.bin_splat_cuda(pts, tables[1], grid,
+                             grid_ordered=False).num_entries
+    bins = splat.bin_splat_cuda(pts, tables[1], grid, e, grid_ordered=False)
+    assert bins.capacity == e
+    # the smallest pieces (1024 points) of every entry's box points
+    vox = grid.voxelize(pts).long()
+    lengths = (bins.tile_start[1:] - bins.tile_start[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(lengths.shape[0],
+                                                device="cuda"), lengths)
+    nt = splat.tile_counts(grid)
+    size = torch.tensor(splat.TILE, device="cuda")
+    t_lo = torch.stack([tile // (nt[1] * nt[2]), tile // nt[2] % nt[1],
+                        tile % nt[2]], -1) * size
+    b = tables[1][bins.gaussians().long()].long()
+    b_lo, b_hi = torch.maximum(b[:, :3], t_lo), torch.minimum(
+        b[:, 3:], t_lo + size - 1)
+    n_e = ((vox[None] >= b_lo[:, None]) & (vox[None] <= b_hi[:, None])
+           ).all(-1).sum(-1)
+    assert splat.points_piece_level(n_e, e, variant) > 0
+    c = sem.shape[1]
+    gl = randn(gen, pts.shape[0], c)
+    scalars = randn(gen, pts.shape[0], 3) if variant == "prob" else None
+    args = (pts, tables[0], opa, sem, tables[1], gl, scalars, grid, variant)
+    times = {}
+    got = splat.splat_backward_cuda(*args, bins=bins, block_times=times)
+    assert 0.0 < splat.block_share(times["k7"]) <= 1.0
+    ref = splat.splat_backward_plain(*args)
+    for name, gt, rf in zip(("gmu", "gopa", "gsem", "gcov"), got, ref):
+        if variant == "additive":
+            _close(gt[:-1], rf[:-1], SUM_TOL, name)
+            _close(gt[-1], rf[-1], SUM_TOL, name + " of the whole-grid box")
+        else:
+            _close(gt, rf, SUM_TOL, name)
+    assert _equal(got, splat.splat_backward_cuda(*args, bins=bins))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = splat.splat_backward_cuda(*args, bins=bins)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _equal(got, replayed)
+
+
+@pytest.mark.parametrize("variant", ["prob", "additive"])
+def test_splat_points_forward_block_times(gen, variant):
+    """K4's general mode records each work item's block time on request;
+    with and without the record it gives the same bits."""
+    kind = variant
+    grid, opa, sem, tables = _points_tables(gen, kind)
+    pts = _points_case(gen, "pileup")
+    bins = splat.bin_splat_cuda(pts, tables[1], grid, grid_ordered=False)
+    times = {}
+    got = splat.splat_accumulate_cuda(pts, *tables, grid, kind, bins=bins,
+                                      block_times=times)
+    assert times["k4"].shape[0] == splat.K4_BLOCKS_PER_ITEM[kind] * (
+        bins.points.items.shape[0] - 1)
+    assert 0.0 < splat.block_share(times["k4"]) <= 1.0
+    assert _equal(got, splat.splat_accumulate_cuda(pts, *tables, grid, kind,
+                                                   bins=bins))
 
 
 @pytest.mark.parametrize("variant", ["prob", "additive"])

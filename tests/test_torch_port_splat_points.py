@@ -71,31 +71,36 @@ def t(a, grad=False):
 
 
 def _brute_bins(points, grid):
-    """Tile t's points in input order, each tile's work items and the
-    tiles by descending count, by loops over the points and tiles."""
+    """Each voxel's points in input order, tile-major (a tile's voxels by
+    their place x | y | z, z fastest), each key's first place and each
+    tile's work items, by loops over the points and voxels."""
     nt = ksplat.tile_counts(grid)
     tiles = nt[0] * nt[1] * nt[2]
-    per_tile = [[] for _ in range(tiles)]
+    tv = ksplat.TILE_VOXELS
+    per_key = [[] for _ in range(tiles * tv)]
     for i, v in enumerate(grid.voxelize(points).tolist()):
         tx, ty, tz = (v[a] // ksplat.TILE[a] for a in range(3))
-        per_tile[(tx * nt[1] + ty) * nt[2] + tz].append(i)
-    order, start, items = [], [0], []
-    for lst in per_tile:
-        items += [len(order) + k
-                  for k in range(0, len(lst), ksplat.TILE_VOXELS)]
-        order += lst
-        start.append(len(order))
+        lx, ly, lz = (v[a] % ksplat.TILE[a] for a in range(3))
+        tile = (tx * nt[1] + ty) * nt[2] + tz
+        per_key[tile * tv + (lx * 8 + ly) * 16 + lz].append(i)
+    order, vstart, items = [], [], []
+    for t in range(tiles):
+        first = len(order)
+        for k in range(t * tv, (t + 1) * tv):
+            vstart.append(len(order))
+            order += per_key[k]
+        items += list(range(first, len(order), tv))
+    vstart.append(len(order))
     bound = ksplat.points_items_bound(points.shape[0], grid)
     items = items + [-1] * (bound - len(items)) + [len(items)]
-    tile_order = sorted(range(tiles), key=lambda k: (-len(per_tile[k]), k))
-    return order, start, items, tile_order
+    return order, vstart, items
 
 
 @pytest.mark.parametrize("case", ["outside", "crowded", "odd", "none"])
 def test_bin_points_plain_matches_brute_force(case):
     """Border tiles collect the clamped points, a crowded tile gives more
-    than one work item, empty tiles give none, and every array has the
-    length its bound gives."""
+    than one work item, empty tiles give none, each voxel's points keep
+    their input order, and every array has the length its bound gives."""
     rng = np.random.RandomState(3)
     grid = SplatGridSpec(H=20, W=12, D=20, pc_min=(-5.0, -3.0, -5.0),
                          grid_size=0.5)
@@ -113,22 +118,82 @@ def test_bin_points_plain_matches_brute_force(case):
         pts[:, 1] = lo[1] - 2.0 + rng.rand(n) * 4.0
     points = torch.from_numpy(pts.astype(np.float32))
     got = ksplat.bin_points_plain(points, grid)
-    order, start, items, tile_order = _brute_bins(points, grid)
+    order, vstart, items = _brute_bins(points, grid)
     assert got.order.tolist() == order
-    assert got.tile_start.tolist() == start
+    assert got.voxel_start.tolist() == vstart
     assert got.items.tolist() == items
-    assert got.tile_order.tolist() == tile_order
-    counts = np.diff(start)
+    counts = np.diff(got.tile_start.numpy())
     if case == "crowded":
         assert counts.max() > ksplat.TILE_VOXELS
         assert got.num_items > (counts > 0).sum()
+        assert got.stats()["max_voxel_points"] > 100
     if case in ("outside", "odd"):
         assert (counts == 0).any() and (counts > 0).any()
     if case == "outside":
         outside = ((pts < lo) | (pts >= lo + span)).any(-1)
         assert outside.mean() > 0.3
-    assert all(x.dtype == torch.int32 for x in (got.order, got.tile_start,
-                                                 got.items, got.tile_order))
+    assert all(x.dtype == torch.int32 for x in (got.order, got.voxel_start,
+                                                 got.items))
+
+
+def _numpy_bins(pts, pc_min, gs, dims):
+    """The sorted order and each key's first place by numpy alone: the
+    voxel by floor and clamp, the key by the tile and the place in it, a
+    stable argsort and a count a key."""
+    v = np.clip(np.floor((pts - np.asarray(pc_min)) / gs).astype(np.int64),
+                0, np.asarray(dims) - 1)
+    nt = [-(-d // t) for d, t in zip(dims, (8, 8, 16))]
+    tile = (v[:, 0] // 8 * nt[1] + v[:, 1] // 8) * nt[2] + v[:, 2] // 16
+    key = tile * 1024 + ((v[:, 0] % 8) * 8 + v[:, 1] % 8) * 16 + v[:, 2] % 16
+    order = np.argsort(key, kind="stable")
+    counts = np.bincount(key, minlength=nt[0] * nt[1] * nt[2] * 1024)
+    return order, np.concatenate([[0], np.cumsum(counts)])
+
+
+@pytest.mark.parametrize("dims", [(16, 16, 16), (20, 12, 20), (9, 17, 33),
+                                  (40, 8, 5)])
+def test_voxel_runs_match_numpy(dims):
+    """The sorted order and ``voxel_start`` against a numpy brute force at
+    grids of full and partial tiles, with points past every face of
+    ``pc_range`` (each clamped into its border voxel) and a pile-up in one
+    voxel; every box's points within a tile are its columns' runs."""
+    rng = np.random.RandomState(sum(dims))
+    gs = 0.5
+    grid = SplatGridSpec(H=dims[0], W=dims[1], D=dims[2],
+                         pc_min=(-2.0, -3.0, -1.0), grid_size=gs)
+    lo = np.array(grid.pc_min)
+    span = np.array(dims) * gs
+    inside = lo + rng.rand(3000, 3) * span
+    faces = []
+    for axis in range(3):
+        for side in (-1.0, 1.0):
+            p = lo + rng.rand(200, 3) * span
+            p[:, axis] = (lo[axis] - 1.0 - rng.rand(200) * 5.0 if side < 0
+                          else lo[axis] + span[axis] + rng.rand(200) * 5.0)
+            faces.append(p)
+    pile = np.repeat(lo[None] + 0.25 * gs, 700, 0)
+    pts = np.concatenate([inside, *faces, pile])[rng.permutation(4900)]
+    pts = pts.astype(np.float32)
+    got = ksplat.bin_points_plain(torch.from_numpy(pts), grid)
+    order, vstart = _numpy_bins(pts, grid.pc_min, gs, dims)
+    np.testing.assert_array_equal(got.order.numpy(), order)
+    np.testing.assert_array_equal(got.voxel_start.numpy(), vstart)
+    assert got.stats()["max_voxel_points"] >= 700
+    # a box's points in one tile: one run a column
+    v = np.clip(np.floor((pts - lo) / gs).astype(np.int64), 0,
+                np.array(dims) - 1)
+    for _ in range(20):
+        b_lo = rng.randint(0, 8, 3) * [1, 1, 2]
+        b_hi = np.minimum(b_lo + rng.randint(0, 6, 3), [7, 7, 15])
+        b_hi = np.minimum(b_hi, np.array(dims) - 1)
+        want = np.flatnonzero(((v >= b_lo) & (v <= b_hi)).all(-1))
+        runs = []
+        for x in range(b_lo[0], b_hi[0] + 1):
+            for y in range(b_lo[1], b_hi[1] + 1):
+                k0 = (x * 8 + y) * 16 + b_lo[2]
+                k1 = (x * 8 + y) * 16 + b_hi[2] + 1
+                runs += order[vstart[k0]:vstart[k1]].tolist()
+        assert sorted(runs) == want.tolist()
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +349,58 @@ def test_splat_grads_match_the_tpu_kernels_at_any_points(variant):
         assert np.abs(r).max() > 0, name
         np.testing.assert_allclose(g.numpy(), r, rtol=0,
                                    atol=TOL * np.abs(r).max(), err_msg=name)
+
+
+def test_crowded_tile_matches_the_tpu_kernels():
+    """A tile of more than three work items (3600 points in the voxels of
+    one tile, a third of them piled into one voxel): the port's plain prob
+    splat against the Pallas kernel with zrun = 0 and the plain backward of
+    both variants against ``jax.grad`` of the Pallas splat, at the
+    tolerances above."""
+    rng = np.random.RandomState(21)
+    arrs = _points_case("prob")
+    lo = np.array(GRID["pc_min"])
+    crowd = lo + rng.rand(3600, 3) * np.array([8.0, 8.0, 8.0])
+    crowd[:1200] = lo + np.array([2.3, 3.6, 1.1])
+    pts = np.concatenate([crowd, arrs[0][0, :400]])[rng.permutation(4000)]
+    pts = pts.astype(np.float32)[None]
+    grid = SplatGridSpec(**GRID)
+    bins = ksplat.bin_points_plain(t(pts[0]), grid)
+    counts = np.diff(bins.tile_start.numpy())
+    assert counts.max() > 3 * ksplat.TILE_VOXELS
+    assert bins.num_items >= (counts > 0).sum() + 3
+    jgrid = JaxGrid(**GRID)
+    arrs = [pts] + arrs[1:]
+    got = splat_prob(*[t(a) for a in arrs], grid)
+    ref = jax_splat(*arrs, jgrid, variant="prob", **PALLAS)
+    for g, r in zip(got[:3], ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=TOL,
+                                   atol=TOL)
+    n = pts.shape[1]
+    for variant in ("prob", "additive"):
+        case = _points_case(variant)
+        means, opa, sem, scales, cov6 = case[1:]
+        cots = [rng.randn(1, n, C).astype(np.float32)]
+        if variant == "prob":
+            cots += [rng.randn(1, n).astype(np.float32) for _ in range(2)]
+        leaves = [t(a, True) for a in (means, opa, sem, cov6)]
+        fn = splat_prob if variant == "prob" else splat_additive
+        outs = fn(t(pts), *leaves[:3], t(scales), leaves[3], grid)
+        grads = torch.autograd.grad(outs[:len(cots)], leaves,
+                                    [t(c) for c in cots])
+
+        def loss(means, opa, sem, cov6):
+            outs = jax_splat(pts, means, opa, sem, scales, cov6, jgrid,
+                             variant=variant, **PALLAS)
+            return sum(jnp.sum(o * c) for o, c in zip(outs, cots))
+        refs = jax.grad(loss, argnums=(0, 1, 2, 3))(means, opa, sem, cov6)
+        for name, g, r in zip(("means", "opacities", "semantics",
+                               "cov_inv6"), grads, refs):
+            r = np.asarray(r)
+            assert np.abs(r).max() > 0, (variant, name)
+            np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                       atol=TOL * np.abs(r).max(),
+                                       err_msg=f"{variant} {name}")
 
 
 # ---------------------------------------------------------------------------
