@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import span
 from . import _lib
 
 #: the g_x window of ``csrc/dcn_bwd.cu``'s input-gradient launch (mirrors
@@ -297,4 +298,5 @@ class DeformConv2dFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out):
-        return deform_conv2d_backward(*ctx.saved_tensors, g_out)
+        with span("dcn_bwd"):
+            return deform_conv2d_backward(*ctx.saved_tensors, g_out)

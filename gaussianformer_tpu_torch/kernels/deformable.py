@@ -29,6 +29,7 @@ import dataclasses
 import torch
 
 from ..device import constant
+from ..utils.profiling import count
 from . import _lib
 
 
@@ -242,6 +243,7 @@ def bin_samples_cuda(points_2d, level_shapes) -> DeformableBins:
         _lib.stream_ptr(points_2d))
     _lib.check(code, name)
     _lib.LAUNCHES["deformable_bin"] += 1
+    count("deformable_bin_entries", pixel_start[-1:])
     return DeformableBins(entries, pixel_start,
                           tuple(map(tuple, level_shapes)),
                           workspace_bytes=4 * words)

@@ -57,6 +57,7 @@ import math
 import torch
 
 from ..device import constant
+from ..utils.profiling import count, host_read
 from . import _lib
 
 
@@ -341,7 +342,7 @@ def bin_flags_plain(points, box, grid, max_entries=None) -> int:
 
 def check_flags(flags, name="splat_bins"):
     """Raise for a binning's flag word (a host read)."""
-    _check_bits(int(flags.item()), name)
+    _check_bits(host_read("splat_flags", flags), name)
 
 
 def _check_bits(bits: int, name: str):
@@ -395,7 +396,8 @@ def _bin_gaussians(points, box, grid, max_entries):
     if max_entries is not None:
         cap = min(cap, max_entries)
     elif not capturing:
-        cap = int(_tile_extents(box, grid)[1].prod(-1).sum())
+        cap = host_read("splat_capacity",
+                        _tile_extents(box, grid)[1].prod(-1).sum())
     nt = tile_counts(grid)
     tiles = nt[0] * nt[1] * nt[2]
     lib = _lib.lib()
@@ -422,6 +424,8 @@ def _bin_gaussians(points, box, grid, max_entries):
         entries.data_ptr(), slot.data_ptr(), tile_start.data_ptr(),
         tile_items.data_ptr(), _lib.stream_ptr(box)), name)
     _lib.LAUNCHES["splat_bin"] += 1
+    count("splat_capacity", cap)
+    count("splat_entries", tile_start[-1:])
     flags = offsets[-1:]
     if capturing:
         DEFERRED_FLAGS.append(flags)
@@ -461,10 +465,11 @@ def bin_splat_cuda(points, box, grid, max_entries=None,
                                      max_entries)
     bits = None
     if not capturing:
-        bits = int(bins.flags.item())
+        bits = host_read("splat_flags", bins.flags)
         _check_bits(bits & OVER_BOUND, "splat_bins")
     if raster_path(n, grid, grid_ordered, bits):
         return bins
+    count("splat_points_general", n)
     return dataclasses.replace(bins, points=bin_points_cuda(points, grid))
 
 

@@ -15,6 +15,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import constant
 from .focal import dice_loss, distance_weighted_focal_loss
 from .lovasz import lovasz_softmax
 
@@ -31,13 +32,15 @@ def balanced_class_weights(num_classes: int,
                            device=None) -> torch.Tensor:
     """The per-class CE weights, ``manual`` or else 1 / log(frequency),
     L1-normalised to sum to ``num_classes`` (reference
-    occupancy_loss.py:85-92)."""
+    occupancy_loss.py:85-92): a kept constant of ``device``, since a copy
+    from the host each step would wait there for the forward."""
     if manual is not None:
         w = np.asarray(manual, np.float64)
     else:
         w = 1.0 / np.log(NUSC_CLASS_FREQUENCIES[:num_classes] + 0.001)
     w = num_classes * w / np.abs(w).sum()
-    return torch.tensor(w, dtype=torch.float32, device=device)
+    return constant(tuple(w.tolist()), torch.float32,
+                    "cpu" if device is None else device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...kernels.dcn import DeformConv2dFunction, deform_conv2d
+from ...utils.profiling import span
 
 ARCH_SETTINGS = {
     26: (1, 1, 1, 1),     # tiny bottleneck (tests)
@@ -71,19 +72,21 @@ class DeformConv2d(nn.Module):
     def forward(self, x, epilogue=None):
         """``epilogue=(inv, shift)`` fuses a following BN + ReLU; it is
         forward-only, so it is refused with gradients on."""
-        om = self.conv_offset(x).float().permute(0, 2, 3, 1)
-        offset = om[..., :18]
-        mask = torch.sigmoid(om[..., 18:])
-        x_nhwc = x.contiguous(memory_format=torch.channels_last).permute(
-            0, 2, 3, 1)
-        w_hwio = self.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous()
-        if torch.is_grad_enabled():
-            if epilogue is not None:
-                raise ValueError("the fused DCN epilogue has no backward")
-            out = DeformConv2dFunction.apply(x_nhwc, offset, mask, w_hwio)
-        else:
-            out = deform_conv2d(x_nhwc, offset, mask, w_hwio, epilogue)
-        return out.permute(0, 3, 1, 2)
+        with span("dcn"):
+            om = self.conv_offset(x).float().permute(0, 2, 3, 1)
+            offset = om[..., :18]
+            mask = torch.sigmoid(om[..., 18:])
+            x_nhwc = x.contiguous(memory_format=torch.channels_last).permute(
+                0, 2, 3, 1)
+            w_hwio = self.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous()
+            if torch.is_grad_enabled():
+                if epilogue is not None:
+                    raise ValueError("the fused DCN epilogue has no backward")
+                out = DeformConv2dFunction.apply(x_nhwc, offset, mask,
+                                                 w_hwio)
+            else:
+                out = deform_conv2d(x_nhwc, offset, mask, w_hwio, epilogue)
+            return out.permute(0, 3, 1, 2)
 
 
 class Bottleneck(nn.Module):

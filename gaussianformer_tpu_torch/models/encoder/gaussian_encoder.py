@@ -11,6 +11,7 @@ from typing import Sequence
 
 from torch import nn
 
+from ...utils.profiling import span
 from .modules import (AsymmetricFFN, DeformableFeatureAggregation,
                       SparseConv3DModule, SparseGaussian3DEncoder,
                       SparseGaussian3DRefinementModule,
@@ -64,12 +65,14 @@ class GaussianOccEncoder(nn.Module):
                 instance_feature = layer(instance_feature, training,
                                          generator)
             elif op == "deformable":
-                instance_feature = layer(instance_feature, anchor,
-                                         anchor_embed, ms_img_feats,
-                                         projection_mat, image_wh, training,
-                                         generator)
+                with span("encoder/deformable"):
+                    instance_feature = layer(instance_feature, anchor,
+                                             anchor_embed, ms_img_feats,
+                                             projection_mat, image_wh,
+                                             training, generator)
             elif op == "spconv":
-                instance_feature = layer(instance_feature, anchor)
+                with span("encoder/spconv"):
+                    instance_feature = layer(instance_feature, anchor)
             else:  # refine
                 anchor, gaussian = layer(instance_feature, anchor,
                                          anchor_embed)

@@ -22,6 +22,7 @@ from ...device import constant
 from ...kernels.fps import farthest_point_sampling
 from ...ops.compaction import valid_first_order
 from ...ops.safe_ops import safe_inverse_sigmoid
+from ...utils.profiling import span
 from .initializer import ResNetSecondFPN
 
 EPS = torch.finfo(torch.float32).eps
@@ -147,7 +148,8 @@ class GaussianLifterV2(nn.Module):
         b, n = imgs.shape[:2]
         dev = imgs.device
         flat = imgs.reshape((b * n,) + imgs.shape[2:]).permute(0, 3, 1, 2)
-        feat = self.initialize_backbone(flat)
+        with span("lifter/tower"):
+            feat = self.initialize_backbone(flat)
         feat = feat.permute(0, 2, 3, 1).reshape(b, n, *feat.shape[2:4], -1)
         h, w = feat.shape[2:4]
         logits = self.projection(feat)                 # [B, N, h, w, S+1]
@@ -202,9 +204,11 @@ class GaussianLifterV2(nn.Module):
             padded.append(torch.where(valid[i][:, None], cand[i], repl))
         cand = torch.stack(padded)
 
-        sel = torch.stack([
-            farthest_point_sampling(cand[i].contiguous(), self.num_anchor)
-            for i in range(b)]).long()
+        with span("lifter/fps"):
+            sel = torch.stack([
+                farthest_point_sampling(cand[i].contiguous(),
+                                        self.num_anchor)
+                for i in range(b)]).long()
         anchor_xyz = torch.gather(cand, 1, sel[..., None].expand(-1, -1, 3))
         xyz = safe_inverse_sigmoid((anchor_xyz - lo) / (hi - lo))
 

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..configs.nuscenes import GaussianFormerConfig
 from ..device import resolve_device
+from ..utils.profiling import span
 from .backbone.resnet import ResNet
 from .encoder.gaussian_encoder import GaussianOccEncoder
 from .encoder.modules import (AsymmetricFFN, DeformableFeatureAggregation,
@@ -139,31 +140,38 @@ class BEVSegmentor(nn.Module):
         losses; anchor_points [B, num_anchor, 3] in [0, 1]^3, the v1
         lifter's with ``pts_init``. ``generator`` drives the lifter's depth
         sampling and padding and, with ``training``, the dropout draws."""
-        b, n = imgs.shape[:2]
-        flat = imgs.reshape((b * n,) + imgs.shape[2:]).permute(0, 3, 1, 2)
-        feats = self.img_neck(self.img_backbone(flat))
-        ms_feats = [f.permute(0, 2, 3, 1).reshape(
-            b, n, f.shape[2], f.shape[3], f.shape[1]).contiguous()
-            for f in feats]
-        if self.lifter_version == 1:
-            lifter_out = self.lifter(b, anchor_points)
-        else:
-            lifter_out = self.lifter(imgs, projection_mat, image_wh,
-                                     occ_label, occ_cam_mask,
-                                     generator=generator, draws=lifter_draws,
-                                     compute_gt=training)
-        enc_out = self.encoder(lifter_out["representation"],
-                               lifter_out["rep_features"], ms_feats,
-                               projection_mat, image_wh, training, generator)
-        if rep_only:
-            return {"representation": enc_out["representation"]}
-        head_out = self.head(enc_out["representation"], occ_xyz, occ_label,
-                             occ_cam_mask, training, apply_loss_layers)
-        if occ_only:
-            return {"final_occ": head_out["final_occ"]}
-        head_out["pixel_logits"] = lifter_out.get("pixel_logits")
-        head_out["pixel_gt"] = lifter_out.get("pixel_gt")
-        return head_out
+        with span("forward"):
+            b, n = imgs.shape[:2]
+            flat = imgs.flatten(0, 1).permute(0, 3, 1, 2)
+            with span("towers"):
+                feats = self.img_neck(self.img_backbone(flat))
+            ms_feats = [f.permute(0, 2, 3, 1).reshape(
+                b, n, f.shape[2], f.shape[3], f.shape[1]).contiguous()
+                for f in feats]
+            with span("lifter"):
+                if self.lifter_version == 1:
+                    lifter_out = self.lifter(b, anchor_points)
+                else:
+                    lifter_out = self.lifter(
+                        imgs, projection_mat, image_wh, occ_label,
+                        occ_cam_mask, generator=generator,
+                        draws=lifter_draws, compute_gt=training)
+            with span("encoder"):
+                enc_out = self.encoder(lifter_out["representation"],
+                                       lifter_out["rep_features"], ms_feats,
+                                       projection_mat, image_wh, training,
+                                       generator)
+            if rep_only:
+                return {"representation": enc_out["representation"]}
+            with span("head"):
+                head_out = self.head(enc_out["representation"], occ_xyz,
+                                     occ_label, occ_cam_mask, training,
+                                     apply_loss_layers)
+            if occ_only:
+                return {"final_occ": head_out["final_occ"]}
+            head_out["pixel_logits"] = lifter_out.get("pixel_logits")
+            head_out["pixel_gt"] = lifter_out.get("pixel_gt")
+            return head_out
 
 
 def _apply_overrides(overrides, targets):

@@ -33,6 +33,7 @@ from ..device import constant
 from ..kernels.splat import (NORM_3D, bin_splat_cuda, entries_bound,
                              postprocess_prob, splat_accumulate,
                              splat_backward)
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,10 +131,12 @@ class SplatProbFunction(torch.autograd.Function):
         gdata, box, sem_aug = pack_gaussians(means, opacities, semantics,
                                              scales, cov_inv6, grid,
                                              per_axis=per_axis)
-        ctx.bins = _bins(points, box, grid, max_entries, grid_ordered)
-        acc, one_minus, labels = splat_accumulate(
-            points, gdata, box, sem_aug, grid, bins=ctx.bins, **labels)
-        logits, bin_logits, density = postprocess_prob(acc, one_minus)
+        with span("head/bins"):
+            ctx.bins = _bins(points, box, grid, max_entries, grid_ordered)
+        with span("head/splat"):
+            acc, one_minus, labels = splat_accumulate(
+                points, gdata, box, sem_aug, grid, bins=ctx.bins, **labels)
+            logits, bin_logits, density = postprocess_prob(acc, one_minus)
         c = semantics.shape[-1]
         ctx.grid = grid
         ctx.save_for_backward(points, gdata, opacities, semantics, box,
@@ -173,9 +176,11 @@ class SplatAdditiveFunction(torch.autograd.Function):
         gdata, box, sem_aug = pack_gaussians(
             means, opacities, semantics, scales, cov_inv6, grid, "additive",
             per_axis)
-        ctx.bins = _bins(points, box, grid, max_entries, grid_ordered)
-        acc, _, labels = splat_accumulate(points, gdata, box, sem_aug, grid,
-                                          "additive", bins=ctx.bins)
+        with span("head/bins"):
+            ctx.bins = _bins(points, box, grid, max_entries, grid_ordered)
+        with span("head/splat"):
+            acc, _, labels = splat_accumulate(points, gdata, box, sem_aug,
+                                              grid, "additive", bins=ctx.bins)
         ctx.grid = grid
         ctx.save_for_backward(points, gdata, opacities, semantics, box)
         ctx.mark_non_differentiable(labels)

@@ -3,27 +3,31 @@ GPU.
 
     python -m gaussianformer_tpu_torch.profile_forward \
         [--config prob_gs6400|prob_gs12800|prob_gs25600|gs25600_solid|...]
-        [--frames 3] [--train]
+        [--frames 3] [--train] [--chrome-trace PATH]
 
 Runs the config's full-width forward under inference mode (random weights
 from seed 0, the synthetic batch at the config's input size) or, with
-``--train``, the full train step (forward with dropout, losses, backward,
-clipping, AdamW), and prints:
+``--train``, the full train step (``train.step.train_step``: forward with
+dropout, losses, backward, clipping, AdamW), and prints:
 
-- per-stage device time from CUDA events recorded around each stage
-  module's forward (towers, FPN, lifter, encoder ops by kind, head),
-  averaged over ``--frames`` frames or steps after one warm-up; with
-  ``--train`` also the backward (from the loss to the last gradient) and
-  the optimizer update (norm, clipping, AdamW);
-- a ``torch.profiler`` trace of one frame or step: the device's busy time
-  against its CUDA-event time, and the kernels with the most device time.
+- the program's spans (``utils/profiling.py``) over ``--frames`` frames or
+  steps after one warm-up, a frame's or step's share: device time, self
+  device time (less the spans inside), host time and calls, for the
+  towers, the lifter and its tower and FPS, the encoder and its spconv
+  and deformable aggregation, the head and its binning and splat, every
+  DCN and, with ``--train``, the step's forward, losses, backward (each
+  DCN's K5), clipping and update; then the program's counters and its
+  host reads (``sync/*``);
+- a ``torch.profiler`` trace of one frame or step, the program's spans on:
+  the device's busy time against its CUDA-event time, and the kernels with
+  the most device time; ``--chrome-trace`` writes its timeline, on which
+  the spans are ``gf/<name>`` ranges.
 
 Every number names the card it ran on. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
-import collections
 import subprocess
 
 import torch
@@ -32,7 +36,8 @@ from .configs import get_config, list_configs
 from .data.synthetic import synthetic_batch
 from .models.segmentor import build_segmentor
 from .train.optim import build_optimizer
-from .train.step import apply_gradients, build_loss
+from .train.step import build_loss, train_step
+from .utils import profiling
 
 
 def _dev_us(e):
@@ -56,33 +61,6 @@ def device_busy_ms(events) -> float:
     return sum(_dev_us(e) for e in device_kernels(events)) / 1e3
 
 
-class StageTimer:
-    """CUDA events around module calls, summed per stage name."""
-
-    def __init__(self):
-        self.pairs = collections.defaultdict(list)
-        self._open = {}
-
-    def attach(self, module, name):
-        def pre(mod, args):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self._open[id(mod)] = ev
-
-        def post(mod, args, out):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.pairs[name].append((self._open.pop(id(mod)), ev))
-
-        module.register_forward_pre_hook(pre)
-        module.register_forward_hook(post)
-
-    def totals(self, frames: int):
-        torch.cuda.synchronize()
-        return {k: sum(a.elapsed_time(b) for a, b in v) / frames
-                for k, v in self.pairs.items()}
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="prob_gs6400",
@@ -90,6 +68,9 @@ def main():
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the forward")
+    ap.add_argument("--chrome-trace", metavar="PATH",
+                    help="write the profiled frame or step's timeline, with "
+                         "the program's spans, as a Chrome trace")
     ns = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -104,8 +85,6 @@ def main():
     g = cfg.grid
     batch = synthetic_batch(1, cfg.input_size, (g.H, g.W, g.D), seed=0,
                             device="cuda")
-
-    phases = collections.defaultdict(float)
     if ns.train:
         opt, schedule = build_optimizer(model, cfg, 10000)
         loss_fn = build_loss(cfg)
@@ -117,68 +96,47 @@ def main():
                 return model(batch["imgs"], batch["projection_mat"],
                              batch["image_wh"], batch["occ_xyz"],
                              generator=gen)
-        # train.step.train_step, with events between its parts
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        model.zero_grad(set_to_none=True)
-        out = model(batch["imgs"], batch["projection_mat"],
-                    batch["image_wh"], batch["occ_xyz"], batch["occ_label"],
-                    batch["occ_cam_mask"], training=True, generator=gen)
-        ev[0].record()
-        loss, _ = loss_fn(out)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        apply_gradients(model, opt, schedule)
-        ev[3].record()
-        torch.cuda.synchronize()
-        for name, i in (("losses", 0), ("backward (loss to gradients)", 1),
-                        ("update (norm, clip, AdamW)", 2)):
-            phases[name] += ev[i].elapsed_time(ev[i + 1])
+        return train_step(model, opt, schedule, loss_fn, batch, gen)
 
     frame(0)
     torch.cuda.synchronize()
-    phases.clear()
 
-    timer = StageTimer()
-    timer.attach(model.img_backbone, "main tower (ResNet-101 + DCN)")
-    timer.attach(model.img_neck, "FPN")
-    timer.attach(model.lifter, "lifter (total)")
-    if cfg.version == 2:
-        timer.attach(model.lifter.initialize_backbone,
-                     "lifter: initializer tower (ResNet-101 + DCN + "
-                     "SECONDFPN)")
-    timer.attach(model.encoder, "encoder (total)")
-    for op, layer in zip(model.encoder.operation_order,
-                         model.encoder.layers):
-        if op not in ("identity", "add"):
-            timer.attach(layer, f"encoder: {op}")
-    timer.attach(model.head, "head (splat + labels)")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    profiling.enable()
     start.record()
     for i in range(ns.frames):
         frame(1 + i)
     end.record()
-    torch.cuda.synchronize()
+    profiling.disable()
+    stats = profiling.collect()
     frame_ms = start.elapsed_time(end) / ns.frames
     what = "train step" if ns.train else "frame"
     print(f"# {what}: {frame_ms:.3f} ms (CUDA events, mean of {ns.frames}, "
-          f"stage hooks on)")
+          f"the program's spans on)")
     print(f"# peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    totals = dict(timer.totals(ns.frames))
-    totals.update({k: v / ns.frames for k, v in phases.items()})
-    for name, ms in totals.items():
-        print(f"# stage {name}: {ms:.3f} ms ({100 * ms / frame_ms:.1f}%)")
+    for name, sp in stats["spans"].items():
+        ms = sp["device_ms"] / ns.frames
+        print(f"# span {name}: {ms:.3f} ms ({100 * ms / frame_ms:.1f}%), "
+              f"self {sp['self_device_ms'] / ns.frames:.3f} ms, host "
+              f"{sp['host_ms'] / ns.frames:.3f} ms, "
+              f"x{sp['calls'] / ns.frames:g}")
+    for name, v in stats["counters"].items():
+        print(f"# counter {name}: {v / ns.frames:g} a {what}")
 
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
+    profiling.enable()
     with torch.profiler.profile(activities=act, acc_events=True) as prof:
         start.record()
         frame(99)
         end.record()
         torch.cuda.synchronize()
+    profiling.disable()
     traced_ms = start.elapsed_time(end)
+    if ns.chrome_trace:
+        prof.export_chrome_trace(ns.chrome_trace)
     events = prof.key_averages()
     busy_ms = device_busy_ms(events)
     if busy_ms == 0:

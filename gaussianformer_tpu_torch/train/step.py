@@ -16,6 +16,7 @@ from ..configs.nuscenes import MANUAL_CLASS_WEIGHT
 from ..losses.bce import pixel_distribution_loss
 from ..losses.multi_loss import LossTerm, MultiLoss
 from ..losses.occupancy import OccupancyLossCfg, occupancy_loss
+from ..utils.profiling import span
 from .optim import GradientAccumulation
 
 
@@ -60,16 +61,18 @@ def apply_gradients(model, optimizer: torch.optim.Optimizer,
     0), ``optax.clip_by_global_norm`` (g * max_norm / norm when norm >=
     max_norm), then AdamW at ``schedule(t) * lr_mult`` for step t of the
     optimizer. Returns the norm before clipping."""
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    norm = global_norm(grads)
-    max_norm = optimizer.grad_max_norm
-    scale = torch.where(norm < max_norm, torch.ones_like(norm),
-                        max_norm / norm)
-    torch._foreach_mul_(grads, scale)
-    lr = schedule(_steps_taken(optimizer))
-    for group in optimizer.param_groups:
-        group["lr"] = lr * group["lr_mult"]
-    optimizer.step()
+    with span("step/clip"):
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        norm = global_norm(grads)
+        max_norm = optimizer.grad_max_norm
+        scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                            max_norm / norm)
+        torch._foreach_mul_(grads, scale)
+        lr = schedule(_steps_taken(optimizer))
+        for group in optimizer.param_groups:
+            group["lr"] = lr * group["lr_mult"]
+    with span("step/update"):
+        optimizer.step()
     return norm
 
 
@@ -104,29 +107,35 @@ def train_step(model, optimizer: torch.optim.Optimizer,
     ``accumulation`` every micro-step runs under ``no_sync`` and the
     accumulated mean is averaged over the ranks once, before the update,
     so that a world of one gives a plain run's bits."""
-    ddp = isinstance(model, torch.nn.parallel.DistributedDataParallel)
-    module = model.module if ddp else model
-    module.zero_grad(set_to_none=True)
-    sync = (model.no_sync() if ddp and accumulation is not None
-            else contextlib.nullcontext())
-    with sync:
-        out = model(batch["imgs"], batch["projection_mat"],
-                    batch["image_wh"], batch["occ_xyz"], batch["occ_label"],
-                    batch["occ_cam_mask"], batch.get("anchor_points"),
-                    training=True, generator=generator,
-                    apply_loss_layers=apply_loss_layers)
-        loss, logs = loss_fn(out)
-        loss.backward()
-    if accumulation is None:
-        norm = apply_gradients(module, optimizer, schedule)
-    else:
-        norm = global_norm([p.grad for p in module.parameters()
-                            if p.grad is not None])
-        if accumulation.add(module):
-            if ddp:
-                average_gradients(module)
-            apply_gradients(module, optimizer, schedule)
-    metrics = {"loss": loss.detach(),
-               **{k: v.detach() for k, v in logs.items()}}
-    metrics["grad_norm"] = norm.detach()
-    return metrics
+    with span("step"):
+        ddp = isinstance(model, torch.nn.parallel.DistributedDataParallel)
+        module = model.module if ddp else model
+        module.zero_grad(set_to_none=True)
+        sync = (model.no_sync() if ddp and accumulation is not None
+                else contextlib.nullcontext())
+        with sync:
+            with span("step/forward"):
+                out = model(batch["imgs"], batch["projection_mat"],
+                            batch["image_wh"], batch["occ_xyz"],
+                            batch["occ_label"], batch["occ_cam_mask"],
+                            batch.get("anchor_points"), training=True,
+                            generator=generator,
+                            apply_loss_layers=apply_loss_layers)
+            with span("step/losses"):
+                loss, logs = loss_fn(out)
+            with span("step/backward"):
+                loss.backward()
+        if accumulation is None:
+            norm = apply_gradients(module, optimizer, schedule)
+        else:
+            with span("step/clip"):
+                norm = global_norm([p.grad for p in module.parameters()
+                                    if p.grad is not None])
+            if accumulation.add(module):
+                if ddp:
+                    average_gradients(module)
+                apply_gradients(module, optimizer, schedule)
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in logs.items()}}
+        metrics["grad_norm"] = norm.detach()
+        return metrics
