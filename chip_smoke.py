@@ -18,8 +18,8 @@ Phases (each raises on failure, so the script exits nonzero):
             grid, random weights from a seed) under inference mode,
             capturing each kernel's inputs; then one counted frame (every
             launch counter set to 0 just before, read just after: 52 DCN,
-            1 FPS, 4 deformable, 1 splat binning and 1 splat launches, no
-            backward kernel),
+            1 FPS, 4 deformable, 1 splat binning and 1 splat launches, 4
+            spconv voxel tables and 12 fused spconvs, no backward kernel),
             ten timed frames (as many as the bench's loop) and one profiled
             frame for the device's idle share;
 3. kernels  each forward kernel against its plain PyTorch version on the
@@ -33,13 +33,20 @@ Phases (each raises on failure, so the script exits nonzero):
             (a row of their own; both timed sized by the path's bound, as
             the path bins), K4 timed with its binning and held equal
             on the path's bins, and whether its sums are the plain
-            version's bits (informational);
+            version's bits (informational); for the fused spconv
+            (csrc/spconv.cu, at this phase and phase 8's shapes) its voxel
+            table equal to the plain one, the bf16 gather form and the
+            gather form in fp32 on the same bf16 inputs and the plain
+            table, a second call's bits, its voxel table's time, its
+            non-empty (anchor, tap) pairs and taps skipped whole, and its
+            bound on those pairs beside the bound with every tap dense;
 4. small    the tiny config's forward on the GPU (towers without DCN,
             fp32) against the same model run on the CPU;
 5. train    the full-width train step (forward with dropout, losses,
             backward, clipping, AdamW) on the same model: one warm-up step
             capturing the backward kernels' inputs, one counted step (the
-            forward kernels as in phase 2 plus 52 DCN, 4 deformable
+            forward kernels as in phase 2 but the spconv, whose gather
+            form runs under autograd, plus 52 DCN, 4 deformable
             binnings, 4 deformable and 1 splat backward launches), three timed steps and one profiled
             step for the device's idle share; finite loss terms and
             gradient norm, trained parameters moved, frozen ones unchanged
@@ -218,21 +225,27 @@ NO_LAUNCH = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
              "deformable_bin": 0, "deformable_bwd": 0, "splat_bwd": 0,
              "splat_bwd_additive": 0, "splat_points_bin": 0,
              "splat_points": 0, "splat_points_additive": 0,
-             "splat_points_bwd": 0, "splat_points_bwd_additive": 0}
+             "splat_points_bwd": 0, "splat_points_bwd_additive": 0,
+             "spconv_table": 0, "spconv": 0}
 # the splat's tile binning runs once per forward splat; the backward takes
-# the forward's bins
+# the forward's bins. A frame's 4 spconv modules build a voxel table each
+# for their 3 convs
 EXPECTED_LAUNCHES = {**NO_LAUNCH, "dcn": 52, "fps": 1, "deformable": 4,
-                     "splat_bin": 1, "splat": 1}
+                     "splat_bin": 1, "splat": 1, "spconv_table": 4,
+                     "spconv": 12}
 # a train step without checkpointing: the forward's kernels once, and each
-# backward kernel once per forward launch (K6 with its pixel binning)
+# backward kernel once per forward launch (K6 with its pixel binning); the
+# spconv under autograd takes its gather form
 EXPECTED_TRAIN_LAUNCHES = {**EXPECTED_LAUNCHES, "dcn_bwd": 52,
                            "deformable_bin": 4, "deformable_bwd": 4,
-                           "splat_bwd": 1}
-# the v1 configs: one tower (26 DCN blocks), no FPS, the additive splat
+                           "splat_bwd": 1, "spconv_table": 0, "spconv": 0}
+# the v1 configs: one tower (26 DCN blocks), no FPS, the additive splat,
+# three one-conv spconv modules
 V1_LAUNCHES = {**NO_LAUNCH, "dcn": 26, "deformable": 4, "splat_bin": 1,
-               "splat_additive": 1}
+               "splat_additive": 1, "spconv_table": 3, "spconv": 3}
 V1_TRAIN_LAUNCHES = {**V1_LAUNCHES, "dcn_bwd": 26, "deformable_bin": 4,
-                     "deformable_bwd": 4, "splat_bwd_additive": 1}
+                     "deformable_bwd": 4, "splat_bwd_additive": 1,
+                     "spconv_table": 0, "spconv": 0}
 # gs144000 supervises all four refine layers: four splats and backwards
 V1_ALL_TRAIN_LAUNCHES = {**V1_TRAIN_LAUNCHES, "splat_bin": 4,
                          "splat_additive": 4, "splat_bwd_additive": 4}
@@ -368,7 +381,8 @@ def main() -> int:
         return 1
     from gaussianformer_tpu_torch.configs import get_config
     from gaussianformer_tpu_torch.data.synthetic import synthetic_batch
-    from gaussianformer_tpu_torch.kernels import dcn, deformable, fps, splat
+    from gaussianformer_tpu_torch.kernels import (dcn, deformable, fps,
+                                                  spconv, splat)
     from gaussianformer_tpu_torch.models.segmentor import build_segmentor
     from gaussianformer_tpu_torch.ops import splat as ops_splat
 
@@ -397,7 +411,8 @@ def main() -> int:
     log(f"# fps cluster size: {_lib.lib().gf_fps_cluster_size()}")
 
     mods = types.SimpleNamespace(dcn=dcn, fps=fps, deformable=deformable,
-                                 splat=splat, lib=_lib, ops_splat=ops_splat)
+                                 splat=splat, spconv=spconv, lib=_lib,
+                                 ops_splat=ops_splat)
 
     # ---- 12. the port's bench, first, as a process of its own runs it
     bench = bench_phase(mods)
@@ -417,7 +432,8 @@ def main() -> int:
     with torch.inference_mode():
         for key in (("dcn", 256), ("dcn", 512), ("fps",),
                     ("deformable", cfg.total_anchors * 7),
-                    ("splat", "prob", cfg.total_anchors)):
+                    ("splat", "prob", cfg.total_anchors),
+                    ("spconv", cfg.total_anchors)):
             rows.append(check_kernel(key, captured(fwd["calls"], key),
                                      fwd["launches"], mods))
     # the flagship's K4 and K7 inputs, which phase 18 runs again in the
@@ -591,6 +607,8 @@ def capture_specs(mods, backward: bool):
          lambda feats, pts, *a, **k: ("deformable", pts.shape[1])),
         (mods.splat, "splat_accumulate_cuda",
          lambda pts, gdata, *a, **k: ("splat", a[-1], gdata.shape[0])),
+        (mods.spconv, "submanifold_conv3d_cuda",
+         lambda x, *a, **k: ("spconv", x.shape[0])),
         pack,
     ]
 
@@ -694,7 +712,8 @@ def v1_phase(get_config, build_segmentor, synthetic_batch, mods, rows):
         pk = cfg.num_anchor * (len(cfg.fix_scale) + cfg.num_learnable_pts)
         fwd = frame_phase(cfg, model, batch, mods, V1_LAUNCHES, FRAMES)
         with torch.inference_mode():
-            for key in (("deformable", pk), ("splat", "additive", p)):
+            for key in (("deformable", pk), ("splat", "additive", p),
+                        ("spconv", cfg.num_anchor)):
                 rows.append(check_kernel(key, captured(fwd["calls"], key),
                                          fwd["launches"], mods, tag=name))
         del fwd["calls"], fwd["launches"]
@@ -1892,6 +1911,9 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
                    shape=[list(pts.shape), [list(f.shape[2:4])
                                             for f in feats]],
                    inside_pairs=inside, report=True)
+    elif name == "spconv":
+        row, err, tol, ms, plain_ms, flops, nbytes = check_spconv(
+            fn, args, launches, mods, suffix)
     elif key[1] == "additive":
         points, gdata, box, sem_aug, grid, variant = args
         cap = path_capacity(kw)
@@ -1991,7 +2013,7 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
                                   mode == "combine", cap)])
         log(f"# {row['name']}: {pairs} AABB pairs, {gdata.shape[0]} "
             f"Gaussians")
-    peak = PEAK_BF16 if name == "dcn" else PEAK_FP32
+    peak = PEAK_BF16 if name in ("dcn", "spconv") else PEAK_FP32
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     row.update(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
@@ -2001,6 +2023,14 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
     extra = ""
     if name == "dcn":
         extra = f", cuDNN dense conv {row['conv_ms']:.4f} ms"
+    elif name == "spconv":
+        extra = (f"; dense-tap bound {row['dense_bound_ms']:.4f} ms; table "
+                 f"{row['table_ms']:.4f} ms (equal to plain); {row['pairs']} "
+                 f"pairs "
+                 f"({row['pair_share']:.4f} of the dense taps), "
+                 f"{row['taps_skipped']} of {row['tiles'] * row['taps']} "
+                 f"(tile, tap) pairs skipped; fp32 gather form "
+                 f"{row['fp32_err']:.3e} (tol {row['fp32_tol']:.3e})")
     elif name == "fps":
         extra = (f"; {row['us_per_step']:.4f} us a selection, latency floor "
                  f"{row['floor_ms']:.4f} ms ({row['floor_us_per_step']:.4f} "
@@ -2012,6 +2042,80 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
         raise RuntimeError(f"{row['name']} disagrees with its plain "
                            f"version: {err} > {tol}")
     return row
+
+
+def check_spconv(fn, args, launches, mods, suffix):
+    """The fused submanifold conv on one captured call: the voxel table the
+    path built (``gf_spconv_table``) and one built again by the kernel, each
+    equal to ``spconv.voxel_table_plain`` of the call's coordinates; the
+    conv against the bf16 gather form on the plain table
+    (``spconv.submanifold_conv3d_table_plain``, which rounds each 25-tap
+    chunk's product to bf16, five roundings of 2^-8 of a chunk: 2^-5
+    max|ref|) and the gather form in fp32 on the same bf16 inputs (the
+    kernel's own arithmetic in another order: 1e-3 max|ref|); a second
+    call's bits, its voxel table's time and its counters. The operations
+    counted are the non-empty (anchor, tap) pairs' (``spconv_pairs``); the
+    row also gives the bound with every tap dense. Returns check_kernel's
+    (row, err, tol, ms, plain_ms, flops, nbytes)."""
+    import torch
+    from gaussianformer_tpu_torch.utils import profiling
+    sp = mods.spconv
+    x, coords, table, grid_shape, weight, bias = args
+    p, cin = x.shape
+    cout, k = weight.shape[0], weight.shape[1]
+    taps = k ** 3
+    plain_table = sp.voxel_table_plain(coords, grid_shape)
+    for which, t in (("the path's", table),
+                     ("a new", sp.voxel_table_cuda(coords, grid_shape))):
+        if not torch.equal(t, plain_table):
+            raise RuntimeError(
+                f"submanifold_conv3d{suffix}: {which} voxel table differs "
+                f"from voxel_table_plain in "
+                f"{(t != plain_table).sum().item()} voxels")
+    plain_args = (x, coords, plain_table, grid_shape, weight, bias)
+    got = fn(*args)
+    held_repeat("submanifold_conv3d" + suffix, [got], [fn(*args)])
+    ref, plain_ms = timed(
+        lambda: sp.submanifold_conv3d_table_plain(*plain_args))
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    tol = 2.0 ** -5 * scale
+    ref32 = sp.submanifold_conv3d_table_plain(
+        x.bfloat16().float(), coords, plain_table, grid_shape,
+        weight.bfloat16().float(), bias, compute_dtype=torch.float32)
+    fp32_err = (got - ref32).abs().max().item()
+    fp32_tol = 1e-3 * ref32.abs().max().item()
+    if not fp32_err <= fp32_tol:
+        raise RuntimeError(f"submanifold_conv3d{suffix} disagrees with the "
+                           f"fp32 gather form: {fp32_err} > {fp32_tol}")
+    del ref, ref32
+    ms = cuda_ms(lambda: fn(*args), 20)
+    table_ms = cuda_ms(lambda: sp.voxel_table_cuda(coords, grid_shape), 20)
+    profiling.enable()
+    try:
+        fn(*args)
+        counters = profiling.collect()["counters"]
+    finally:
+        profiling.disable()
+    tiles = -(-p // sp.block_rows(p, cout))
+    flops = 2.0 * counters["spconv_pairs"] * cin * cout
+    dense_flops = 2.0 * p * taps * cin * cout
+    nbytes = (p * cin * 2 + weight.numel() * 2 + table.numel() * 4
+              + coords.numel() * 4 + p * cout * 4)
+    row = dict(name="submanifold_conv3d" + suffix, route="cuda",
+               source="gaussianformer_tpu_torch/csrc/spconv.cu",
+               replaces="none (gaussianformer_tpu/ops/sparse_conv.py leaves "
+                        "the gather and matmuls to XLA)",
+               launches=launches["spconv"],
+               table_launches=launches["spconv_table"],
+               shape=[p, cin, cout, k], taps=taps, tiles=tiles,
+               pairs=counters["spconv_pairs"],
+               pair_share=counters["spconv_pairs"] / (p * taps),
+               taps_skipped=counters["spconv_taps_skipped"],
+               table_ms=table_ms, fp32_err=fp32_err, fp32_tol=fp32_tol,
+               dense_bound_ms=dense_flops / PEAK_BF16 * 1e3,
+               table_equal=True, repeat_bit_equal=True, report=True)
+    return row, err, tol, ms, plain_ms, flops, nbytes
 
 
 def splat_mode(points, box, grid, cap, mods) -> bool:

@@ -39,7 +39,8 @@ LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
             "deformable_bin": 0, "deformable_bwd": 0, "splat_bwd": 0,
             "splat_bwd_additive": 0, "splat_points_bin": 0,
             "splat_points": 0, "splat_points_additive": 0,
-            "splat_points_bwd": 0, "splat_points_bwd_additive": 0}
+            "splat_points_bwd": 0, "splat_points_bwd_additive": 0,
+            "spconv_table": 0, "spconv": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -217,6 +218,13 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
                                                      P, P, P, P, P, P, I, P,
                                                      P, P, L, P, P, P, P]
     so.gf_splat_points_backward_additive.restype = I
+    so.gf_spconv_table.argtypes = [P, I, I, I, I, P, P]
+    so.gf_spconv_table.restype = I
+    so.gf_spconv_block_rows.argtypes = [I, I]
+    so.gf_spconv_block_rows.restype = I
+    so.gf_spconv_forward.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                     I, P]
+    so.gf_spconv_forward.restype = I
     return so
 
 

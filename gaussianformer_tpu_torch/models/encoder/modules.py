@@ -11,6 +11,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ...kernels import spconv
 from ...kernels.deformable import deformable_aggregation
 from ...ops.coords import cartesian, reverse_cartesian, world_xyz
 from ...ops.rotation import quaternion_to_rotation_matrix
@@ -261,6 +262,12 @@ class SubMConv3d(nn.Module):
         return submanifold_conv3d(x, nb_anchor, self.weight, self.bias,
                                   compute_dtype=self.dtype)
 
+    def fused(self, x, coords, table, grid_shape):
+        """The same conv by ``csrc/spconv.cu`` on the voxel table (bf16
+        compute, no autograd)."""
+        return spconv.submanifold_conv3d_cuda(x, coords, table, grid_shape,
+                                              self.weight, self.bias)
+
 
 class SparseConv3DModule(nn.Module):
     """Submanifold convs over the voxelised anchors (reference
@@ -268,7 +275,10 @@ class SparseConv3DModule(nn.Module):
     (``use_multi_layer``, GaussianFormer-2) or one conv without bias (the
     v1 models), then an output projection where ``use_out_proj``. The
     convs compute in ``dtype`` (bf16 at full width, as the JAX package
-    does on accelerators)."""
+    does on accelerators). Where :func:`kernels.spconv.why_not_fused`
+    allows it (a bf16 frame on the card), every conv of a call runs in
+    ``csrc/spconv.cu`` on one voxel table built on the card; elsewhere (a
+    train step, fp32, the CPU) in the gather form."""
 
     def __init__(self, in_channels: int = 128, embed_channels: int = 128,
                  pc_range=(-50.0, -50.0, -5.0, 50.0, 50.0, 3.0),
@@ -298,16 +308,32 @@ class SparseConv3DModule(nn.Module):
         xyz = cartesian(anchor[..., :3], self.pc_range)
         coords, grid_shape = voxel_indices(xyz, self.pc_range,
                                            self.grid_size)
+        convs = ([self.layer[i] for i in range(0, len(self.layer), 3)]
+                 if self.use_multi_layer else [self.layer])
+        fused = spconv.why_not_fused(
+            instance_feature, [c.weight for c in convs],
+            [c.bias for c in convs], convs[0].dtype) is None
         outs = []
         for bi in range(instance_feature.shape[0]):
-            nb = neighbor_anchors(coords[bi], grid_shape, self.kernel_size)
+            if fused:
+                c32 = coords[bi].to(torch.int32).contiguous()
+                table = spconv.voxel_table_cuda(c32, grid_shape)
+
+                def conv(layer, x):
+                    return layer.fused(x, c32, table, grid_shape)
+            else:
+                nb = neighbor_anchors(coords[bi], grid_shape,
+                                      self.kernel_size)
+
+                def conv(layer, x):
+                    return layer(x, nb)
             x = instance_feature[bi]
             if self.use_multi_layer:
                 for i in range(0, len(self.layer), 3):
-                    x = self.layer[i](x, nb)
+                    x = conv(self.layer[i], x)
                     x = torch.relu(self.layer[i + 1](x))
             else:
-                x = self.layer(x, nb)
+                x = conv(self.layer, x)
             outs.append(x)
         return self.output_proj(torch.stack(outs))
 

@@ -13,10 +13,13 @@ head's whole-grid Gaussian, the splat's tile bins against their plain
 version, on a grid where no tile is a whole brick, the splat's general
 mode at any points (its points bins against their plain version; K4 and
 K7 at finer, shuffled, outside, crowded and odd-sized point sets, and at
-the raster grid's own points against the raster mode); and the backward
+the raster grid's own points against the raster mode); the fused
+submanifold conv and its voxel table at the gs144000 and Prob-64 shapes and
+at narrow, ragged ones, with shared voxels, anchors clamped to the border
+and a row tile whose every tap is empty; and the backward
 kernels K5-K7 against their plain backward versions on random cotangents.
-The splat kernels K4 and K7 (and their bins), K5 and K6 give the same bits
-on every call, and the calls of K5 and K6 make no host sync. Marked ``cuda``; they skip
+The splat kernels K4 and K7 (and their bins), K5, K6 and the spconv give
+the same bits on every call, and the calls of K5 and K6 make no host sync. Marked ``cuda``; they skip
 on a host without a CUDA device. On the card (``--noconftest``:
 tests/conftest.py imports JAX):
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda``.
@@ -31,8 +34,11 @@ import math
 import pytest
 import torch
 
-from gaussianformer_tpu_torch.kernels import _lib, dcn, deformable, fps, splat
+from gaussianformer_tpu_torch.kernels import (_lib, dcn, deformable, fps,
+                                              spconv, splat)
 from gaussianformer_tpu_torch.ops.covariance import build_covariance_inverse6
+from gaussianformer_tpu_torch.ops.sparse_conv import voxel_indices
+from gaussianformer_tpu_torch.utils import profiling
 from gaussianformer_tpu_torch.ops.splat import SplatGridSpec, pack_gaussians
 
 BF16_TOL = 2.0 ** -7
@@ -1052,3 +1058,121 @@ def test_splat_points_on_the_grid_equal_the_raster_mode(gen, variant):
             _close(gt[:-1], rf[:-1], SUM_TOL, name)
         else:
             _close(gt, rf, SUM_TOL, name)
+
+
+PC_RANGE = (-50.0, -50.0, -5.0, 50.0, 50.0, 3.0)
+#: (anchors, C_in, C_out, grid size, bias, layers through one table): the
+#: gs144000 conv (blocks of 128 rows, P a multiple of 128), Prob-64's three
+#: (blocks of 64 rows), a P that takes blocks of 128 rows with a partial
+#: last one, narrow ones at a P that is no multiple of 64 (C_out 32 and
+#: 96: a block's 128 channels past C_out are zeros) and C_out 288 (three
+#: column blocks, the last one partial)
+SPCONV_CASES = {
+    "gs144000": (144000, 128, 128, (0.5, 0.5, 0.5), False, 1),
+    "prob64": (6400, 128, 128, (1.0, 1.0, 1.0), True, 3),
+    "ragged128": (40037, 128, 128, (0.5, 0.5, 0.5), False, 1),
+    "wide": (3001, 64, 288, (1.0, 1.0, 1.0), True, 2),
+    "narrow": (1000, 32, 32, (1.0, 1.0, 1.0), True, 1),
+    "ragged": (1000, 64, 96, (2.0, 2.0, 0.5), False, 2),
+}
+
+
+def _spconv_coords(gen, p, grid_size, shared=0.05, outside=0.02):
+    """int32 voxel coordinates of ``p`` anchors spread over pc_range,
+    ``shared`` of them in another anchor's voxel and ``outside`` of them
+    past the range (clamped to the border), and the grid's shape."""
+    lo = torch.tensor(PC_RANGE[:3], device="cuda")
+    span = torch.tensor(PC_RANGE[3:], device="cuda") - lo
+    u = torch.rand(p, 3, generator=gen, device="cuda")
+    n_out = int(p * outside)
+    u[:n_out] = u[:n_out] * 1.4 - 0.2
+    n_sh = int(p * shared)
+    src = torch.randint(0, p, (n_sh,), generator=gen, device="cuda")
+    u[p - n_sh:] = u[src]
+    coords, shape = voxel_indices(lo + u * span, PC_RANGE, grid_size)
+    return coords.to(torch.int32).contiguous(), shape
+
+
+def _spconv_layers(gen, cin, cout, bias, layers):
+    out = []
+    for i in range(layers):
+        ci = cin if i == 0 else cout
+        w = randn(gen, cout, 5, 5, 5, ci, scale=(125 * ci) ** -0.5)
+        out.append((w, randn(gen, cout, scale=0.1) if bias else None))
+    return out
+
+
+@pytest.mark.parametrize("case", list(SPCONV_CASES))
+def test_spconv_kernel_matches_plain(gen, case):
+    """The voxel table equals its plain version; each conv (every layer on
+    the kernel's previous output, LayerNorm and ReLU between, as Prob's
+    three) is held to the gather form twice. Against the gather form in
+    fp32 on the same bf16 inputs (the kernel's arithmetic, sums in another
+    order): SUM_TOL. Against the bf16 gather form: it rounds each chunk of
+    25 taps' product to bf16 (half an ulp, 2^-8 of the chunk, five times)
+    where the kernel sums all 125 taps in fp32, so 2^-5 max|ref|. Two calls
+    give the same bits; one table launch and one conv launch a layer. The
+    block height the kernel takes is the one the case names."""
+    p, cin, cout, grid_size, bias, layers = SPCONV_CASES[case]
+    assert spconv.block_rows(p, cout) == (
+        64 if case in ("prob64", "narrow", "ragged", "wide") else 128)
+    coords, shape = _spconv_coords(gen, p, grid_size)
+    convs = _spconv_layers(gen, cin, cout, bias, layers)
+    x = randn(gen, p, cin)
+    _lib.reset_launches()
+    table = spconv.voxel_table_cuda(coords, shape)
+    assert torch.equal(table, spconv.voxel_table_plain(coords, shape))
+    for w, b in convs:
+        got = spconv.submanifold_conv3d_cuda(x, coords, table, shape, w, b)
+        again = spconv.submanifold_conv3d_cuda(x, coords, table, shape, w, b)
+        assert torch.equal(got, again)
+        assert got.dtype == torch.float32 and got.shape == (p, cout)
+        ref32 = spconv.submanifold_conv3d_table_plain(
+            x.bfloat16().float(), coords, table, shape, w.bfloat16().float(),
+            b, compute_dtype=torch.float32)
+        _close(got, ref32, SUM_TOL, f"{case} fp32")
+        ref = spconv.submanifold_conv3d_table_plain(x, coords, table, shape,
+                                                    w, b)
+        _close(got, ref, 2.0 ** -5, f"{case} bf16")
+        x = torch.relu(torch.nn.functional.layer_norm(got, (cout,)))
+    torch.cuda.synchronize()
+    assert (_lib.LAUNCHES["spconv_table"], _lib.LAUNCHES["spconv"]) == (
+        1, 2 * layers)
+
+
+def test_spconv_kernel_skips_empty_taps(gen):
+    """Row tile 0's anchors find no neighbour in the table (it was built
+    from coordinates that put them far away): every tap of that tile is
+    skipped and its rows are the bias. The counters equal the plain
+    neighbour rule's non-empty pairs and per-tile empty taps."""
+    p, c, X, Y, Z = 700, 64, 24, 10, 6
+    shape = (X, Y, Z)
+    rows = torch.stack([
+        torch.randint(0, 3, (p,), generator=gen, device="cuda"),
+        torch.randint(0, Y, (p,), generator=gen, device="cuda"),
+        torch.randint(0, Z, (p,), generator=gen, device="cuda")], -1)
+    rows[64:, 0] += 8                       # the other tiles at x >= 8
+    in_table = rows.clone()
+    in_table[:64, 0] = X - 1                # tile 0's own voxels far away
+    rows = rows.to(torch.int32).contiguous()
+    table = spconv.voxel_table_cuda(in_table.to(torch.int32).contiguous(),
+                                    shape)
+    w = randn(gen, c, 5, 5, 5, c, scale=0.02)
+    b = randn(gen, c)
+    x = randn(gen, p, c)
+    profiling.enable()
+    try:
+        got = spconv.submanifold_conv3d_cuda(x, rows, table, shape, w, b)
+        counters = profiling.collect()["counters"]
+    finally:
+        profiling.disable()
+    assert torch.equal(got[:64], b.expand(64, c))
+    ref = spconv.submanifold_conv3d_table_plain(x, rows, table, shape, w, b)
+    _close(got, ref, 2.0 ** -5, "empty tile")
+    nb = spconv.tap_neighbors_plain(rows, table, shape, 5)
+    bm = spconv.block_rows(p, c)
+    tiles = torch.nn.functional.pad((nb >= 0).int(), (0, 0, 0, -p % bm))
+    empty_taps = (tiles.reshape(-1, bm, 125).sum(1) == 0).sum().item()
+    assert (nb[:64] < 0).all()
+    assert counters["spconv_pairs"] == (nb >= 0).sum().item()
+    assert counters["spconv_taps_skipped"] == empty_taps >= 125
