@@ -20,10 +20,17 @@ same stages of the first step's forward (with the system's dropout
 draws); the backward of each stage that the first step's backward ran
 (each DCN of the towers, each encoder operation, the head), from the
 arguments and the output's cotangent that the system's stage had; then
-the reference follows the system's first three steps from the same
-weights, samples, anchors and draws: each step's loss and gradient norm,
-the first step's gradient and the three steps' change of each trained
-leaf, by the worst leaf and by the median one.
+the reference follows the system's first steps (the traffic's
+``checked``, or the cell's ``steps_followed``) from the same weights,
+samples, anchors and draws: each step's loss and gradient norm, the first
+step's gradient and the steps' change of each trained leaf, by the worst
+leaf and by the median one.
+
+A deformable aggregation's gaps (its output in ``encoder_rel``, its
+anchors' rows of the arguments' gradients in ``encoder_grad_rel``) leave
+out the anchors that have a key point at an image's edge
+(``edge_anchors`` of the reference's aggregation): whether such a point
+is seen turns on the last bits of its projection on either side.
 
 Every number is a gap that should be small; ``correct`` holds when each
 number that ``checks/<workload>.json`` names is at most its limit there.
@@ -78,6 +85,18 @@ def detached(x):
     return tree_map(lambda t: t.detach(), x)
 
 
+def snapshot(model):
+    """:func:`detached`, with a copy of each tensor that shares a parameter
+    of ``model``'s storage (a v1 anchor bank handed on as a view): the
+    optimizer updates those in place after the step."""
+    held = {p.untyped_storage().data_ptr() for p in model.parameters()}
+
+    def one(t):
+        t = t.detach()
+        return t.clone() if t.untyped_storage().data_ptr() in held else t
+    return lambda x: tree_map(one, x)
+
+
 def moved(x, device):
     """``x`` (tensors in dicts, lists and tuples) on ``device``."""
     return tree_map(lambda t: t.to(device), x)
@@ -107,11 +126,12 @@ class FrameCapture:
     the encoder's Gaussians, the head's input and its last output and
     labels. Hooks
     are on only inside ``with capture.on():``; with ``detach`` the tensors
-    kept hold no autograd graph."""
+    kept hold no autograd graph and outlive the step's update
+    (:func:`snapshot`)."""
 
     def __init__(self, model, detach: bool = False):
         self.model = model
-        self.keep = detached if detach else (lambda x: x)
+        self.keep = snapshot(model) if detach else (lambda x: x)
         self.data = {"ops": []}
 
     @contextlib.contextmanager
@@ -179,6 +199,7 @@ class GradCapture:
         for name, mod in model.named_modules():
             if is_dcn(mod):
                 self.stages[name] = (mod, lambda o: o)
+        self.keep = snapshot(model)
         self.data = {}
 
     @contextlib.contextmanager
@@ -223,7 +244,7 @@ class GradCapture:
                 v.register_hook(self._keep(rec["arg_grad"], j))
                 return v
             args = tree_map(swap, args)
-            rec["args"] = detached(args)
+            rec["args"] = self.keep(args)
             return args
         return pre
 
@@ -238,14 +259,12 @@ class GradCapture:
         return post
 
 
-def vjp(fn, rec, params) -> tuple:
-    """(``fn``'s output, the gap of the stage's gradients): ``fn`` run on
-    float copies of the arguments ``rec`` kept (:class:`GradCapture`),
-    its outputs' cotangents the system's, and each gradient that the
-    system's backward owed (arguments, then ``params`` by name; one it
-    never gave counts as zero) against the reference's: the largest
-    ||got - want|| over the larger of ||want|| and the median gradient's
-    ||want||."""
+def stage_grads(fn, rec, params) -> tuple:
+    """(``fn``'s output, {argument's place: gradient}, {parameter's name:
+    gradient}): ``fn`` run on float copies of the arguments ``rec`` kept
+    (:class:`GradCapture`), its outputs' cotangents the system's, and the
+    gradient of each argument that the system's backward owed and of each
+    of ``params`` that the system's stage had (zero where none flows)."""
     flat = []
 
     def leaf(t):
@@ -266,21 +285,45 @@ def vjp(fn, rec, params) -> tuple:
                                allow_unused=True)
     want = [torch.zeros_like(x) if w is None else w
             for w, x in zip(want, wrt)]
-    got = ([rec["arg_grad"].get(j) for j in needs]
-           + [rec["param_grad"].get(k) for k in names])
+    return (out, dict(zip(needs, want[:len(needs)])),
+            dict(zip(names, want[len(needs):])))
+
+
+def grad_gaps(fn, rec, params, rows=None) -> tuple:
+    """(``fn``'s output, {gradient: gap}): each gradient that
+    :func:`stage_grads` gives (``arg<place>`` or the parameter's name)
+    against the system's (one the system never gave counts as zero):
+    ||got - want|| over the larger of ||want|| and the median gradient's
+    ||want||. ``rows``: ([B, P] mask, argument places): of those
+    arguments' gradients only the rows the mask keeps are compared."""
+    out, args, prm = stage_grads(fn, rec, params)
+    names = [f"arg{j}" for j in args] + list(prm)
+    want = list(args.values()) + list(prm.values())
+    got = ([rec["arg_grad"].get(j) for j in args]
+           + [rec["param_grad"].get(k) for k in prm])
     got = [torch.zeros_like(w) if g is None else g
            for g, w in zip(got, want)]
-    return detached(out), _gap(got, want)
+    if rows is not None:
+        mask, places = rows
+        cut = [j in places for j in args] + [False] * len(prm)
+        got = [g[mask.to(g.device)] if c else g for g, c in zip(got, cut)]
+        want = [w[mask] if c else w for w, c in zip(want, cut)]
+    return detached(out), dict(zip(names, _gaps(got, want)))
 
 
-def _gap(got, want) -> float:
+def vjp(fn, rec, params, rows=None) -> tuple:
+    """(``fn``'s output, the largest of :func:`grad_gaps`)."""
+    out, gaps = grad_gaps(fn, rec, params, rows)
+    return out, max(gaps.values(), default=0.0)
+
+
+def _gaps(got, want) -> list:
     norm = lambda t: torch.linalg.vector_norm(t.double()).item()  # noqa
     wn = [norm(w) for w in want]
     med = statistics.median(wn) if wn else 0.0
-    gaps = [norm(g.double().to(w.device) - w.double()) / d
+    return [norm(g.double().to(w.device) - w.double()) / d
             if (d := max(n, med)) > 0 else norm(g)
             for g, w, n in zip(got, want, wn)]
-    return max(gaps, default=0.0)
 
 
 def rows_off(got, want) -> torch.Tensor:
@@ -340,6 +383,11 @@ def wiring_gap(ref, cap) -> float:
                rel(as_float(cap["head_in"]), preds_got))
 
 
+#: the arguments of a deformable aggregation indexed by anchor: the
+#: instance features, the anchors and their embedding
+DEFORMABLE_ROWS = (0, 1, 2)
+
+
 def check_frame(ref, cap, sample, draws, labels, enc_draws=None,
                 grads=None) -> dict:
     """The gaps of one forward: ``cap`` the system's stages
@@ -383,27 +431,39 @@ def check_frame(ref, cap, sample, draws, labels, enc_draws=None,
                                     | rows_off(inst, want_inst))
                                    .sum().item())
         enc, spc, enc_g, spc_g = 0.0, 0.0, 0.0, 0.0
+        enc_g_at = None
         replay = None if enc_draws is None else Replay(enc_draws).rand
         for i, args, got in cap["ops"]:
-            spconv = i != "embed" and order[i] == "spconv"
-            if i == "embed":
+            op = "embed" if i == "embed" else order[i]
+            kept = None
+            if op == "deformable":
+                # anchors with a key point at an image's edge are left out
+                a = as_float(args)
+                kept = ~ref.encoder.layers[i].edge_anchors(a[0], a[1],
+                                                           a[4], a[5])
+            if op == "embed":
                 want = ref.encoder.anchor_encoder(as_float(args)[0])
             elif _ran(grads.get(i)):
-                want, gap = vjp(
+                want, gaps = grad_gaps(
                     lambda a, i=i: ref.encoder.run_op(i, a, replay),
                     grads[i], dict(ref.encoder.layers[i]
-                                   .named_parameters()))
-                if spconv:
+                                   .named_parameters()),
+                    None if kept is None else (kept, DEFORMABLE_ROWS))
+                gap = max(gaps.values(), default=0.0)
+                if op == "spconv":
                     spc_g = max(spc_g, gap)
-                else:
-                    enc_g = max(enc_g, gap)
+                elif gap >= enc_g:
+                    enc_g = gap
+                    enc_g_at = f"{i} {op} {max(gaps, key=gaps.get)}"
             else:
                 want = ref.encoder.run_op(i, as_float(args), replay)
-            gap = rel(as_float(got), want)
-            if spconv:
-                spc = max(spc, gap)
+            got = as_float(got)
+            if kept is not None:
+                got, want = got[kept], want[kept]
+            if op == "spconv":
+                spc = max(spc, rel(got, want))
             else:
-                enc = max(enc, gap)
+                enc = max(enc, rel(got, want))
         out["encoder_rel"] = enc
         out["spconv_rel"] = spc
         out["wiring_rel"] = wiring_gap(ref, cap)
@@ -414,10 +474,11 @@ def check_frame(ref, cap, sample, draws, labels, enc_draws=None,
                              != want_labels).float().mean().item()
         if grads:
             out["encoder_grad_rel"] = enc_g
+            out["encoder_grad_worst"] = enc_g_at
             out["spconv_grad_rel"] = spc_g
             _, out["head_grad_rel"] = vjp(
                 lambda a: ref.head(a[0], a[1], training=True)[0],
-                grads["head"], {})
+                grads["head"], dict(ref.head.named_parameters()))
             missing += sum(1 for i in seen | {"head"}
                            if i != "embed" and not _ran(grads.get(i)))
     out["stages_missing"] = float(missing)
@@ -481,12 +542,12 @@ def check_dcn_grads(ref, grads) -> tuple:
 
 
 def check_train(ref, step_fn, sut: dict, ring) -> dict:
-    """The gaps of the first step's stages and of the first three steps.
+    """The gaps of the first step's stages and of the steps followed.
     ``sut``: what the system did (``loss`` [3], ``grad_norm`` [3],
     ``draws`` [3] lists of draws, ``xyz`` [3] its anchors' positions or
     None, ``stages`` its first step's :class:`FrameCapture`, ``grads``
     its first step's :class:`GradCapture`, ``grad`` its first step's
-    gradient and ``change`` its three steps' change by trained leaf);
+    gradient and ``change`` the steps' change by trained leaf);
     ``step_fn`` the reference's :class:`reference.model.TrainStep`;
     ``ring`` the samples."""
     c = ref.c
@@ -549,4 +610,6 @@ def check_train(ref, step_fn, sut: dict, ring) -> dict:
     out["change_leaf_median"] = statistics.median(changed)
     worst = sorted(zip(raw, names), reverse=True)[:5]
     out["raw_worst_leaves"] = [[n, g] for g, n in worst]
+    worst = sorted(zip(changed, kept), reverse=True)[:5]
+    out["change_worst_leaves"] = [[n, g] for g, n in worst]
     return out

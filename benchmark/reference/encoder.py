@@ -6,17 +6,32 @@ parameter names are the program's.
 Anchor layout: [xyz logits (3), scale logits (3), quaternion (4),
 opacity logit (0|1), semantics (C)]. Dropout takes its uniforms from
 ``rand(shape)``, which the caller supplies (a replay of the draws the
-program made, in their order)."""
+program made, in their order).
+
+With ``checkpoint`` the encoder runs each operation under
+``torch.utils.checkpoint``: its autograd memory is recomputed in the
+backward instead of held. An operation's dropout uniforms are drawn
+before it runs and handed in, so that the recomputation reuses them. The
+deformable sampling runs in pieces of :data:`CHUNK` anchors, each
+recomputed in the backward whenever gradients are on (at 144,000 anchors
+one block's samples alone would hold about 21 GB)."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from .precision import REFERENCE, Precision
 
 CLAMP = 9.21
+#: anchors a piece of the deformable sampling
+CHUNK = 16384
+#: how near (in normalised image coordinates) to an image's edge a key
+#: point lies where whether it is seen turns on the last bits of its
+#: projection
+EDGE = 1e-5
 
 
 def sigmoid(x):
@@ -50,6 +65,21 @@ def rotation_matrix(quat):
                      2 * (y * z - w * x)], -1),
         torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
                      1 - 2 * (x * x + y * y)], -1)], -2)
+
+
+def handing(draws):
+    """A ``rand`` that hands out ``draws`` in order (None: no dropout)."""
+    if draws is None:
+        return None
+    it = iter(draws)
+
+    def rand(shape):
+        t = next(it)
+        if tuple(t.shape) != tuple(shape):
+            raise RuntimeError(f"a draw of {tuple(t.shape)} handed out "
+                               f"where {tuple(shape)} is asked for")
+        return t
+    return rand
 
 
 def dropout(x, p, rand):
@@ -124,6 +154,14 @@ class AsymmetricFFN(nn.Module):
                             if add_identity and in_channels != dims
                             else nn.Identity())
 
+    def draw_shapes(self, x):
+        """The shapes of the uniforms the forward on ``x`` draws."""
+        if self.drop <= 0.0:
+            return []
+        rows = tuple(x.shape[:-1])
+        return [rows + (self.layers[0][0].out_features,),
+                rows + (self.layers[1].out_features,)]
+
     def forward(self, x, rand=None):
         h = dropout(self.layers[0](x), self.drop, rand)
         out = dropout(self.layers[1](h), self.drop, rand)
@@ -162,7 +200,34 @@ class KeyPoints(nn.Module):
         return pts + to_world(anchor[..., :3], self.pc_range)[:, :, None]
 
 
+def project(kp, projection_mat, image_wh):
+    """Key points [B, P, K, 3] -> (normalised image coordinates
+    [B, cams, P, K, 2], depth [B, cams, P, K])."""
+    hom = torch.cat([kp, torch.ones_like(kp[..., :1])], -1)
+    proj = (projection_mat[:, :, None, None] @ hom[:, None, ..., None]
+            )[..., 0]
+    depth = proj[..., 2]
+    uv = proj[..., :2] / depth[..., None].clamp_min(1e-5)
+    return uv / image_wh[:, :, None, None, :], depth
+
+
 def aggregate(feature_maps, loc, weights, num_pts, prec: Precision):
+    """:func:`bilinear_sum` in pieces of :data:`CHUNK` anchors, each
+    recomputed in the backward where gradients are on."""
+    step = CHUNK * num_pts
+    outs = []
+    for q0 in range(0, loc.shape[1], step):
+        args = (feature_maps, loc[:, q0:q0 + step],
+                weights[:, q0:q0 + step], num_pts, prec)
+        if torch.is_grad_enabled():
+            outs.append(_checkpoint(bilinear_sum, *args,
+                                    use_reentrant=False))
+        else:
+            outs.append(bilinear_sum(*args))
+    return torch.cat(outs, 1)
+
+
+def bilinear_sum(feature_maps, loc, weights, num_pts, prec: Precision):
     """Bilinear samples (align_corners False; a location counts only
     strictly inside (0, 1)^2; corners outside the map add nothing) of each
     level at each location and camera, weighted per level and group and
@@ -186,6 +251,8 @@ def aggregate(feature_maps, loc, weights, num_pts, prec: Precision):
         y0 = torch.floor(py)
         lx = px - x0
         ly = py - y0
+        spread = torch.arange(px.numel(), device=loc.device).reshape(
+            px.shape) % (h * w)
         samp = 0.0
         for dy, dx, cw in ((0, 0, (1 - ly) * (1 - lx)), (0, 1, (1 - ly) * lx),
                            (1, 0, ly * (1 - lx)), (1, 1, ly * lx)):
@@ -197,6 +264,10 @@ def aggregate(feature_maps, loc, weights, num_pts, prec: Precision):
             # row index is formed in integers
             idx = (yy.clamp(0, h - 1).long() * w
                    + xx.clamp(0, w - 1).long())
+            # a corner that adds nothing reads a pixel of its own, not the
+            # border's: the backward's sum by index serialises on a row
+            # that many samples read
+            idx = torch.where(ok, idx, spread)
             cam = torch.arange(cams, device=loc.device)
             rows = (torch.arange(b, device=loc.device)[:, None, None] * cams
                     + cam) * (h * w)
@@ -226,6 +297,24 @@ class DeformableFeatureAggregation(nn.Module):
         self.weights_fc = nn.Linear(dims, groups * levels * k)
         self.output_proj = nn.Linear(dims, dims)
 
+    def edge_anchors(self, feat, anchor, projection_mat, image_wh):
+        """[B, P] bool: the anchors with a key point in front of a camera
+        within :data:`EDGE` of its image's edge. Such a point is seen or
+        not by the last bits of its projection, and where it is one of few
+        that an anchor's group sees, the anchor's output jumps with it."""
+        uv, depth = project(self.kps_generator(anchor, feat),
+                            projection_mat, image_wh)
+        near = torch.minimum(uv.abs(), (1.0 - uv).abs()).amin(-1) < EDGE
+        return (near & (depth > 1e-5)).any(-1).any(1)
+
+    def draw_shapes(self, feat):
+        """The shapes of the uniforms the forward on ``feat`` draws."""
+        if self.attn_drop <= 0.0:
+            return []
+        b, p = feat.shape[:2]
+        return [(b, p, self.num_cams, self.levels,
+                 self.kps_generator.num_pts, self.groups)]
+
     def forward(self, feat, anchor, anchor_embed, feature_maps,
                 projection_mat, image_wh, rand=None):
         b, p = feat.shape[:2]
@@ -236,13 +325,7 @@ class DeformableFeatureAggregation(nn.Module):
         wts = self.weights_fc((feat + anchor_embed)[:, :, None]
                               + cam[:, None]).reshape(
             b, p, self.num_cams, self.levels, k, self.groups)
-        # project: [B, cams, P, K, 2] normalised image coordinates
-        hom = torch.cat([kp, torch.ones_like(kp[..., :1])], -1)
-        proj = (projection_mat[:, :, None, None] @ hom[:, None, ..., None]
-                )[..., 0]
-        depth = proj[..., 2]
-        uv = proj[..., :2] / depth[..., None].clamp_min(1e-5)
-        uv = uv / image_wh[:, :, None, None, :]
+        uv, depth = project(kp, projection_mat, image_wh)
         vis = ((depth > 1e-5) & (uv[..., 0] > 0) & (uv[..., 0] < 1)
                & (uv[..., 1] > 0) & (uv[..., 1] < 1))
         keep = None
@@ -287,10 +370,14 @@ class SubMConv3d(nn.Module):
         xq = self.prec.tower(x)
         wmat = self.prec.tower(self.weight).permute(1, 2, 3, 4, 0).reshape(
             kkk, cin, -1)
+        # an empty tap reads the anchor's own row, zeroed: were it to read
+        # one shared row, the backward's sum by index would serialise on it
+        own = torch.arange(p, device=x.device)[:, None]
+        safe = torch.where(neighbours < 0, own, neighbours)
         out = 0.0
         for t in range(0, kkk, 25):
             nb = neighbours[:, t:t + 25]
-            cols = xq[nb.clamp_min(0).reshape(-1)].reshape(p, -1, cin)
+            cols = xq[safe[:, t:t + 25].reshape(-1)].reshape(p, -1, cin)
             cols = cols.masked_fill((nb < 0)[..., None], 0.0)
             out = out + cols.reshape(p, -1) @ wmat[t:t + 25].reshape(
                 -1, wmat.shape[-1])
@@ -441,8 +528,10 @@ def operation_order(c):
 
 
 class GaussianOccEncoder(nn.Module):
-    def __init__(self, c, prec: Precision = REFERENCE):
+    def __init__(self, c, prec: Precision = REFERENCE,
+                 checkpoint: bool = False):
         super().__init__()
+        self.checkpoint = checkpoint
         d = c["embed_dims"]
         self.order = operation_order(c)
         self.anchor_encoder = SparseGaussian3DEncoder(d, c["semantic_dim"],
@@ -492,6 +581,21 @@ class GaussianOccEncoder(nn.Module):
             return layer(*args[:3])
         return layer(args[0])
 
+    def step(self, i, args, rand=None):
+        """:meth:`run_op`, its dropout uniforms drawn from ``rand`` first
+        and handed in; under ``checkpoint`` (with gradients on) recomputed
+        in the backward on the same uniforms."""
+        draws = None
+        if rand is not None and hasattr(self.layers[i], "draw_shapes"):
+            draws = [rand(s) for s in self.layers[i].draw_shapes(args[0])]
+        if self.checkpoint and torch.is_grad_enabled():
+            return _checkpoint(self._handed, i, args, draws,
+                               use_reentrant=False)
+        return self._handed(i, args, draws)
+
+    def _handed(self, i, args, draws):
+        return self.run_op(i, args, handing(draws))
+
     def forward(self, anchor, feat, feature_maps, projection_mat, image_wh,
                 rand=None):
         embed = self.anchor_encoder(anchor)
@@ -503,15 +607,15 @@ class GaussianOccEncoder(nn.Module):
             elif op == "add":
                 feat = feat + identity
             elif op == "deformable":
-                feat = self.run_op(i, (feat, anchor, embed, feature_maps,
-                                       projection_mat, image_wh), rand)
+                feat = self.step(i, (feat, anchor, embed, feature_maps,
+                                     projection_mat, image_wh), rand)
             elif op == "spconv":
-                feat = self.run_op(i, (feat, anchor))
+                feat = self.step(i, (feat, anchor))
             elif op == "refine":
-                anchor, g = self.run_op(i, (feat, anchor, embed))
+                anchor, g = self.step(i, (feat, anchor, embed))
                 preds.append(g)
                 if i != len(self.order) - 1:
                     embed = self.anchor_encoder(anchor)
             else:
-                feat = self.run_op(i, (feat,), rand)
+                feat = self.step(i, (feat,), rand)
         return preds

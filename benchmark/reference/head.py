@@ -11,7 +11,14 @@ prob:     w = (2 pi)^-3/2 sqrt(det A) opacity; the semantics are
           sum w e <= 1e-9), the occupancy 1 - prod (1 - e), and the output
           [sem * occupancy, 1 - occupancy] with its argmax as the label
 additive: sum sem opacity e, with its argmax as the label.
-Softmaxed semantics get a zero empty column (prob)."""
+Softmaxed semantics get a zero empty column (prob).
+
+With ``with_empty`` (GaussianFormer NonEmpty, ``prepare_gaussian_args``)
+the learnt Gaussians' semantics get a zero empty column instead, and one
+more Gaussian is appended: mean ``empty_mean``, scales ``empty_scale``,
+the identity rotation, opacity 1, and as semantics the one-hot of
+``empty_label`` times the trained scalar ``empty_scalar``. Its box, by the
+rule above clamped to the grid, is the whole grid."""
 from __future__ import annotations
 
 import math
@@ -54,12 +61,12 @@ def _chunk(pts, vox, mu, a6, table, lo, hi, prob: bool, prec: Precision):
     """(sum of table * e [n, T], log prod (1 - e) [n]) of one chunk of
     points against the Gaussians given."""
     d = prec.elementwise(mu)[None] - prec.elementwise(pts)[:, None]
+    # each axis taken out once: an axis selected at each use would cost the
+    # backward a zero-filled [n, P, 3] gradient for each use
+    d0, d1, d2 = d.unbind(-1)
     a = prec.elementwise(a6)
-    q = (a[:, 0] * d[..., 0] ** 2 + a[:, 1] * d[..., 1] ** 2
-         + a[:, 2] * d[..., 2] ** 2
-         + 2.0 * (a[:, 3] * d[..., 0] * d[..., 1]
-                  + a[:, 4] * d[..., 1] * d[..., 2]
-                  + a[:, 5] * d[..., 0] * d[..., 2]))
+    q = (a[:, 0] * d0 ** 2 + a[:, 1] * d1 ** 2 + a[:, 2] * d2 ** 2
+         + 2.0 * (a[:, 3] * d0 * d1 + a[:, 4] * d1 * d2 + a[:, 5] * d0 * d2))
     inside = ((vox[:, None] >= lo[None]) & (vox[:, None] <= hi[None])).all(-1)
     e = torch.exp(torch.clamp_max(-0.5 * q, 30.0)) * inside
     acc = (e @ prec.elementwise(table)).float()
@@ -78,7 +85,9 @@ def splat(points, means, opacities, semantics, scales, cov_inv6, grid,
     r = torch.ceil(scales.detach().amax(-1, keepdim=True)
                    * grid["scale_multiplier"] / grid["grid_size"]
                    ).long().clamp_min(1)
-    lo, hi = mu_v - r, mu_v + r
+    top = torch.tensor([grid["H"] - 1, grid["W"] - 1, grid["D"] - 1],
+                       device=means.device)
+    lo, hi = (mu_v - r).clamp_min(0), torch.minimum(mu_v + r, top)
     if prob:
         xx, yy, zz, xy, yz, xz = cov_inv6.unbind(-1)
         det = (xx * yy * zz + 2 * xy * yz * xz - xx * yz * yz - yy * xz * xz
@@ -114,8 +123,12 @@ class GaussianHead(torch.nn.Module):
         self.combine = c["combine_geosem"]
         self.num_decoder = c["num_decoder"]
         self.apply_loss_type = c["apply_loss_type"]
-        if c["with_empty"]:
-            raise NotImplementedError("the empty Gaussian (gs25600_solid)")
+        self.with_empty = c["with_empty"]
+        if self.with_empty:
+            self.empty_label = c["empty_label"]
+            self.empty_mean = tuple(c["empty_mean"])
+            self.empty_scale = tuple(c["empty_scale"])
+            self.empty_scalar = torch.nn.Parameter(torch.full((1,), 10.0))
 
     def layers(self, training):
         if not training or self.apply_loss_type == "random_1":
@@ -135,18 +148,40 @@ class GaussianHead(torch.nn.Module):
             sem = g.semantics
             opa = (g.opacities[..., 0] if g.opacities.shape[-1]
                    else torch.ones_like(sem[..., 0]))
-            if self.prob:
+            means, scales, rots = g.means, g.scales, g.rotations
+            if self.with_empty:
+                means, scales, rots, opa, sem = self.add_empty(
+                    means, scales, rots, opa, sem)
+            elif self.prob:
                 sem = torch.softmax(sem, -1)
                 sem = torch.cat([sem, torch.zeros_like(sem[..., :1])], -1)
-            cov = inverse_covariance(g.scales, g.rotations)
+            cov = inverse_covariance(scales, rots)
             out = []
             for i in range(b):
-                acc, log_om = splat(pts[i], g.means[i], opa[i], sem[i],
-                                    g.scales[i], cov[i], self.grid,
+                acc, log_om = splat(pts[i], means[i], opa[i], sem[i],
+                                    scales[i], cov[i], self.grid,
                                     self.prob, self.prec)
                 out.append(self.finish(acc, log_om))
             outs.append(torch.stack(out))
         return outs, outs[-1].argmax(-1)
+
+    def add_empty(self, means, scales, rots, opa, sem):
+        """The Gaussians [B, P, ...] with the empty Gaussian appended
+        [B, P + 1, ...], and the empty column on the semantics."""
+        b, dev = means.shape[0], means.device
+
+        def one(v):
+            return torch.tensor(v, dtype=means.dtype, device=dev).expand(
+                b, 1, -1)
+        sem = torch.cat([sem, torch.zeros_like(sem[..., :1])], -1)
+        hot = (torch.arange(sem.shape[-1], device=dev)
+               == self.empty_label).to(sem.dtype)
+        return (torch.cat([means, one(self.empty_mean)], 1),
+                torch.cat([scales, one(self.empty_scale)], 1),
+                torch.cat([rots, one((1.0, 0.0, 0.0, 0.0))], 1),
+                torch.cat([opa, torch.ones_like(opa[:, :1])], 1),
+                torch.cat([sem, (hot * self.empty_scalar).expand(
+                    b, 1, -1)], 1))
 
     def finish(self, acc, log_om):
         c = acc.shape[1] - 2

@@ -30,7 +30,7 @@ class Model(nn.Module):
                             prec=prec)
         self.lifter = (GaussianLifterV2(c, prec, checkpoint)
                        if c["version"] == 2 else GaussianLifter(c))
-        self.encoder = GaussianOccEncoder(c, prec)
+        self.encoder = GaussianOccEncoder(c, prec, checkpoint)
         self.head = GaussianHead(c, prec)
 
     def towers(self, imgs):

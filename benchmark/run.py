@@ -7,8 +7,9 @@ From the root of a checkout. The cell (``BENCHMARK.json``'s
 ``workloads``) names a configuration (``benchmark/configs/<name>.json``)
 and a traffic file (``benchmark/traffic/<name>.json``, whose ``"loop"``
 names the generator ``benchmark/loops/<loop>.py``); its limits are
-``benchmark/checks/<workload>.json`` and each per-layer metric is read by
-``benchmark/metrics/<metric>.py``. The run sets up the program and its
+``benchmark/checks/<workload>.json`` (with, for a train cell, how many
+steps the reference follows, where not the traffic's) and each per-layer
+metric is read by ``benchmark/metrics/<metric>.py``. The run sets up the program and its
 inputs from the seed, warms up the cell's own shapes, measures for
 ``--seconds``, then checks the timed path's outputs against the plain
 reference (``reference/``). The last line of standard output is one JSON
@@ -77,6 +78,30 @@ def spec(name: str):
     raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
 
 
+#: the key of a checks file that is no limit: how many of a train cell's
+#: first steps the reference follows, where not the traffic's ``checked``
+STEPS = "steps_followed"
+
+
+def with_checks(traffic: dict, checks: dict) -> tuple:
+    """(traffic, limits) of a cell from its traffic file and its checks
+    file: the checks' ``steps_followed``, where given, is the traffic's
+    ``checked``; every other key is a number's limit."""
+    limits = {k: v for k, v in checks.items() if k != STEPS}
+    if STEPS in checks:
+        traffic = dict(traffic, checked=checks[STEPS])
+    return traffic, limits
+
+
+def e2e_value(name: str, metrics: dict):
+    """The window's value of the end-to-end metric ``name``: its own, or
+    for a split ``<metric>.<part>`` (one quantity under a bound of its own
+    in the cells that it lists) ``<metric>``'s; None where it has none."""
+    if name in metrics:
+        return metrics[name]
+    return metrics.get(name.split(".")[0]) if "." in name else None
+
+
 def make_cell(workload: dict, seed: int, device: str) -> Cell:
     """The cell's configuration (checked against the program's config of
     the same name: the file holds the configuration as it is run),
@@ -90,11 +115,12 @@ def make_cell(workload: dict, seed: int, device: str) -> Cell:
         diff = sorted(k for k in run_as if run_as[k] != conf["config"].get(k))
         raise SystemExit(f"{workload['config']}: the program's config "
                          f"differs from the file in {diff}")
+    traffic, limits = with_checks(
+        load_json(HERE / "traffic" / f"{workload['traffic']}.json"),
+        load_json(HERE / "checks" / f"{workload['name']}.json"))
     return Cell(name=workload["name"], c=conf["config"], cfg=cfg,
-                traffic=load_json(HERE / "traffic"
-                                  / f"{workload['traffic']}.json"),
-                limits=load_json(HERE / "checks" / f"{workload['name']}.json"),
-                seed=seed, device=device, shapes=state_shapes(conf["config"]))
+                traffic=traffic, limits=limits, seed=seed, device=device,
+                shapes=state_shapes(conf["config"]))
 
 
 def compare(cell: Cell, window) -> dict:
@@ -148,10 +174,10 @@ def run_cell(cell: Cell, bench: dict, seconds: float, trace_on: bool):
         print(f"loaded at the end of the window: {bad}", file=sys.stderr)
         raise SystemExit(3)
     e2e = [m for m in bench["end_to_end"] if applies(m, cell.name)
-           and m["name"] in window.metrics]
+           and e2e_value(m["name"], window.metrics) is not None]
     metrics = {}
     if not trace_on:
-        metrics = {m["name"]: {"value": window.metrics[m["name"]],
+        metrics = {m["name"]: {"value": e2e_value(m["name"], window.metrics),
                                "unit": m["unit"]} for m in e2e}
     cuda = torch.device(cell.device).type == "cuda"
     device = {"platform": "gpu" if cuda else "cpu",

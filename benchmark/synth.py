@@ -13,7 +13,7 @@ The weights are made by parameter name and shape: fan-in scaled normals
 for conv and linear weights (a hundredth of that for the DCN offset
 convs, so offsets are fractional and the bilinear paths run), unit norm
 scales, zero biases, random BN statistics, N(0, 1) anchors and instance
-features; the v1 anchor bank as GaussianFormer initialises it (xyz and
+features, the empty Gaussian's scalar at 10; the v1 anchor bank as GaussianFormer initialises it (xyz and
 scales uniform in the unit cube through the inverse sigmoid, the identity
 rotation, opacity 0.5, N(0, 1) semantics)."""
 from __future__ import annotations
@@ -138,6 +138,9 @@ def make_state(shapes, c, seed: int, device):
             t = z * 0.1
         elif leaf == "running_var":
             t = u + 0.5
+        elif name == "head.empty_scalar":
+            # GaussianFormer's own init, which the program keeps
+            t = torch.full(shape, 10.0, device=device)
         elif len(shape) == 1:
             t = torch.full(shape, 1.0 if leaf in ("weight", "scale") else 0.0,
                            device=device)

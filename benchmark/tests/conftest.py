@@ -20,10 +20,10 @@ def tiny_cell(config: str, loop: str, workload: str, seed: int = 11,
     ``config`` (``tests/data``), on the CPU, with a ring of 3."""
     from gaussianformer_tpu_torch.configs import get_config
     conf = json.loads((DATA / f"{config}.json").read_text())
-    tr = json.loads((run.HERE / "traffic" / f"{loop}.json").read_text())
+    tr, limits = run.with_checks(
+        json.loads((run.HERE / "traffic" / f"{loop}.json").read_text()),
+        json.loads((run.HERE / "checks" / f"{workload}.json").read_text()))
     tr.update(ring=3, **traffic)
-    limits = json.loads((run.HERE / "checks"
-                         / f"{workload}.json").read_text())
     return run.Cell(name=workload, c=conf["config"], cfg=get_config(config),
                     traffic=tr, limits=limits, seed=seed, device="cpu",
                     shapes=state_shapes(conf["config"]))

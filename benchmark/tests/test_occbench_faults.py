@@ -3,7 +3,11 @@ configs on the CPU: the reference one precision step down in the
 program's place, and the run driven with its timed path broken: an
 answer altered where it is produced and a residual left out of the
 encoder (frames), a step that leaves its state unchanged and a DCN
-backward that gives half of each gradient (training). A train cell's
+backward that gives half of each gradient (training), at gs144000 the
+spconv's weight given half of its gradient and the anchor bank moved by
+half of its update, and at gs25600_solid the empty Gaussian left out of
+the splat (both) or its scalar's gradient zeroed (training). A train
+cell's
 batch is one sample, so no half of it can be left out; its cells run on
 one chip, with no exchange between chips to leave out."""
 from __future__ import annotations
@@ -24,7 +28,8 @@ def _fails(cell, numbers):
 @pytest.mark.parametrize("config,loop,workload", [
     ("prob_gs6400_tiny", "frame", "prob64-frame"),
     ("gs144000_tiny", "frame", "gs144k-frame"),
-    ("prob_gs6400_tiny", "train", "prob64-train")])
+    ("prob_gs6400_tiny", "train", "prob64-train"),
+    ("gs144000_tiny", "train", "gs144k-train")])
 def test_control_fails(config, loop, workload):
     cell = tiny_cell(config, loop, workload)
     assert _fails(cell, readings.planted(cell, "control"))
@@ -73,7 +78,13 @@ def test_residual_left_out_fails(bench, monkeypatch):
         result["checked"]["wiring_rel"]["limit"]
 
 
-def test_train_step_leaving_its_state_fails(bench, monkeypatch):
+TRAIN_CELLS = [("prob_gs6400_tiny", "train", "prob64-train"),
+               ("gs144000_tiny", "train", "gs144k-train")]
+
+
+@pytest.mark.parametrize("config,traffic,workload", TRAIN_CELLS)
+def test_train_step_leaving_its_state_fails(config, traffic, workload, bench,
+                                            monkeypatch):
     from gaussianformer_tpu_torch.train import step
     real = step.train_step
 
@@ -85,15 +96,36 @@ def test_train_step_leaving_its_state_fails(bench, monkeypatch):
                 p.copy_(k)
         return out
     monkeypatch.setattr(step, "train_step", frozen)
-    cell = tiny_cell("prob_gs6400_tiny", "train", "prob64-train")
+    cell = tiny_cell(config, traffic, workload)
     result = run.run_cell(cell, bench, 0.3, False)
     assert not result["correct"]
 
 
-def test_dcn_backward_halved_fails(bench):
-    cell = tiny_cell("prob_gs6400_tiny", "train", "prob64-train")
+@pytest.mark.parametrize("config,traffic,workload", TRAIN_CELLS)
+def test_dcn_backward_halved_fails(config, traffic, workload, bench):
+    cell = tiny_cell(config, traffic, workload)
     with readings.dcn_backward_halved():
         result = run.run_cell(cell, bench, 0.3, False)
     assert not result["correct"]
     assert result["checked"]["dcn_grad_rel"]["value"] > \
         result["checked"]["dcn_grad_rel"]["limit"]
+
+
+@pytest.mark.parametrize("config,loop,workload,fault,caught", [
+    ("gs25600_solid_tiny", "frame", "gs144k-frame",
+     "empty_gaussian_left_out", "labels_off"),
+    ("gs25600_solid_tiny", "train", "gs144k-train",
+     "empty_gaussian_left_out", "head_rel"),
+    ("gs25600_solid_tiny", "train", "gs144k-train",
+     "empty_scalar_grad_zeroed", "head_grad_rel"),
+    ("gs144000_tiny", "train", "gs144k-train",
+     "spconv_weight_grad_halved", "spconv_grad_rel"),
+    ("gs144000_tiny", "train", "gs144k-train",
+     "bank_update_halved", "change_leaf_gap")])
+def test_planted_faults_fail(config, loop, workload, fault, caught, bench):
+    cell = tiny_cell(config, loop, workload)
+    with readings.FAULTS[fault]():
+        result = run.run_cell(cell, bench, 0.3, False)
+    assert not result["correct"]
+    assert result["checked"][caught]["value"] > \
+        result["checked"][caught]["limit"]

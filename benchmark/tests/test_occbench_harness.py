@@ -16,10 +16,14 @@ from benchmark.reference.model import state_shapes
 
 from .conftest import tiny_cell
 
+# gs25600_solid_tiny (the empty Gaussian) under the v1 cells' limits
 CASES = [("prob_gs6400_tiny", "frame", "prob64-frame", 1),
          ("gs144000_tiny", "frame", "gs144k-frame", 1),
          ("prob_gs6400_tiny", "train", "prob64-train", 1),
-         ("prob_gs6400_tiny", "frame", "prob64-frame", 2)]
+         ("prob_gs6400_tiny", "frame", "prob64-frame", 2),
+         ("gs144000_tiny", "train", "gs144k-train", 1),
+         ("gs25600_solid_tiny", "frame", "gs144k-frame", 1),
+         ("gs25600_solid_tiny", "train", "gs144k-train", 1)]
 
 
 @pytest.mark.parametrize("config,loop,workload,batch", CASES)
