@@ -13,7 +13,9 @@ layer.
 - additive (the v1 models): the semantics as the refinement left them, the
   additive splat, ``pred_occ`` its raw sums. ``with_empty`` appends one
   large fixed Gaussian that carries the learnable ``empty_scalar`` on the
-  empty class; a prediction without opacities is splatted with ones.
+  empty class; its box is the whole grid, one COVERS entry in every tile of
+  the splat's bins, so K7's fold walks a slot of every tile for it. A
+  prediction without opacities is splatted with ones.
 
 ``per_axis_radii`` (the reference's localagg_prob_fast) sizes each box by
 the Gaussian's scale on each axis rather than by its largest. ``max_scale``

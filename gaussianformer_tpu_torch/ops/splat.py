@@ -155,10 +155,11 @@ class SplatProbFunction(torch.autograd.Function):
         gl = (g_logits * inv_ps[:, None]).contiguous()
         scalars = torch.stack([(gl * logits).sum(-1), g_bin * one_minus,
                                g_density], -1).contiguous()
-        gmu, gopa, gsem, gcov = splat_backward(
-            points, gdata, opa.float().contiguous(),
-            sem.float().contiguous(), box, gl, scalars, ctx.grid,
-            bins=ctx.bins)
+        with span("splat_bwd"):
+            gmu, gopa, gsem, gcov = splat_backward(
+                points, gdata, opa.float().contiguous(),
+                sem.float().contiguous(), box, gl, scalars, ctx.grid,
+                bins=ctx.bins)
         return (gmu, gopa, gsem, gcov, None, None, None, None, None, None,
                 None)
 
@@ -167,7 +168,9 @@ class SplatAdditiveFunction(torch.autograd.Function):
     """One batch element's additive splat: K4 forward, which saves only
     its inputs (the JAX package's ``f_fwd`` saves no residuals for this
     variant) and, on the card, its tile bins; K7 backward on the logits
-    cotangent as it comes. Returns
+    cotangent as it comes. A box as large as the grid (the v1 head's empty
+    Gaussian) is one COVERS entry in every tile, so K7's fold walks a slot
+    of every tile for it. Returns
     (logits [N, C], labels [N] int32)."""
 
     @staticmethod
@@ -189,10 +192,12 @@ class SplatAdditiveFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_logits, _g_labels):
         points, gdata, opa, sem, box = ctx.saved_tensors
-        gmu, gopa, gsem, gcov = splat_backward(
-            points, gdata, opa.float().contiguous(),
-            sem.float().contiguous(), box, g_logits.float().contiguous(),
-            None, ctx.grid, "additive", bins=ctx.bins)
+        with span("splat_bwd"):
+            gmu, gopa, gsem, gcov = splat_backward(
+                points, gdata, opa.float().contiguous(),
+                sem.float().contiguous(), box,
+                g_logits.float().contiguous(), None, ctx.grid, "additive",
+                bins=ctx.bins)
         return gmu, gopa, gsem, gcov, None, None, None, None, None, None
 
 

@@ -5,9 +5,10 @@ shared null context; a tensor counter is read once, in ``collect()``; the
 launch counters keep their meaning; a tiny frame and a tiny train step with
 tracing on record every span the program places (``BEVSegmentor``, the
 lifter, the encoder's spconv and deformable aggregation, the head's
-binning and splat, every DCN and its backward, the step's phases), with
-no device time on the CPU; and labels, loss and gradients are the same
-bits with tracing on and off.
+binning and splat, every DCN and its backward, the splat's backward, the
+step's phases), with no device time on the CPU; the splat's backward runs
+once for each refine layer a step supervises; and labels, loss and
+gradients are the same bits with tracing on and off.
 
 Two cases need the card (marker ``cuda``): an eager tiny frame and train
 step under ``torch.cuda.set_sync_debug_mode("error")``, which only
@@ -36,7 +37,7 @@ FRAME_SPANS = {"forward", "towers", "dcn", "lifter", "encoder",
                "head/splat"}
 PROB_SPANS = {"lifter/tower", "lifter/fps"}
 STEP_SPANS = {"step", "step/forward", "step/losses", "step/backward",
-              "dcn_bwd", "step/clip", "step/update"}
+              "dcn_bwd", "splat_bwd", "step/clip", "step/update"}
 PARENTS = {"forward": {None, "step/forward"}, "towers": {"forward"},
            "dcn": {"towers", "lifter/tower"}, "lifter": {"forward"},
            "lifter/tower": {"lifter"}, "lifter/fps": {"lifter"},
@@ -45,7 +46,8 @@ PARENTS = {"forward": {None, "step/forward"}, "towers": {"forward"},
            "head/bins": {"head"}, "head/splat": {"head"}, "step": {None},
            "step/forward": {"step"}, "step/losses": {"step"},
            "step/backward": {"step"}, "dcn_bwd": {"step/backward"},
-           "step/clip": {"step"}, "step/update": {"step"}}
+           "splat_bwd": {"step/backward"}, "step/clip": {"step"},
+           "step/update": {"step"}}
 
 
 @pytest.fixture(autouse=True)
@@ -267,7 +269,8 @@ def _stepper(cfg, model):
     return step
 
 
-@pytest.mark.parametrize("name", ["prob_gs6400_tiny", "gs144000_tiny"])
+@pytest.mark.parametrize("name", ["prob_gs6400_tiny", "gs144000_tiny",
+                                  "gs25600_solid_tiny"])
 def test_tiny_frame_and_step_record_every_span(name):
     cfg, model, batch = _tiny(name)
     profiling.enable()
@@ -293,6 +296,24 @@ def test_tiny_frame_and_step_record_every_span(name):
     assert {r[2] for r in recs[first_step:]} == {2}
     # the CPU runs the plain versions: no kernel launch, no bins, no read
     assert got["launches"] == {} and got["counters"] == {}
+
+
+@pytest.mark.parametrize("name,calls", [("gs25600_solid_tiny", 1),
+                                        ("gs144000_tiny", 2)])
+def test_step_splat_backward_once_a_supervised_layer(name, calls):
+    """``splat_bwd`` (K7) runs once for each refine layer a step splats:
+    the last alone under ``random_1`` (gs25600_solid), every one of the
+    ``num_decoder`` under ``all`` (gs144000)."""
+    cfg, model, batch = _tiny(name)
+    assert calls == (1 if cfg.apply_loss_type == "random_1"
+                     else cfg.num_decoder)
+    step = _stepper(cfg, model)
+    profiling.enable()
+    step(batch)
+    profiling.disable()
+    got = profiling.collect()["spans"]
+    assert got["splat_bwd"]["calls"] == calls
+    assert got["step/backward"]["calls"] == 1
 
 
 @pytest.fixture
