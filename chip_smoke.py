@@ -201,6 +201,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -226,26 +227,38 @@ NO_LAUNCH = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
              "splat_bwd_additive": 0, "splat_points_bin": 0,
              "splat_points": 0, "splat_points_additive": 0,
              "splat_points_bwd": 0, "splat_points_bwd_additive": 0,
-             "spconv_table": 0, "spconv": 0}
+             "spconv_table": 0, "spconv": 0, "bn_epilogue": 0}
 # the splat's tile binning runs once per forward splat; the backward takes
 # the forward's bins. A frame's 4 spconv modules build a voxel table each
-# for their 3 convs
+# for their 3 convs. The frozen-BN epilogue runs 74 times a ResNet-101
+# tower (the stem, 33 bn1, the 7 bn2 outside the DCN blocks, 33 block ends)
+# and once a SECONDFPN branch
 EXPECTED_LAUNCHES = {**NO_LAUNCH, "dcn": 52, "fps": 1, "deformable": 4,
                      "splat_bin": 1, "splat": 1, "spconv_table": 4,
-                     "spconv": 12}
+                     "spconv": 12, "bn_epilogue": 2 * 74 + 4}
 # a train step without checkpointing: the forward's kernels once, and each
 # backward kernel once per forward launch (K6 with its pixel binning); the
-# spconv under autograd takes its gather form
+# spconv under autograd takes its gather form, the frozen BNs PyTorch's
+# passes
 EXPECTED_TRAIN_LAUNCHES = {**EXPECTED_LAUNCHES, "dcn_bwd": 52,
                            "deformable_bin": 4, "deformable_bwd": 4,
-                           "splat_bwd": 1, "spconv_table": 0, "spconv": 0}
+                           "splat_bwd": 1, "spconv_table": 0, "spconv": 0,
+                           "bn_epilogue": 0}
 # the v1 configs: one tower (26 DCN blocks), no FPS, the additive splat,
 # three one-conv spconv modules
 V1_LAUNCHES = {**NO_LAUNCH, "dcn": 26, "deformable": 4, "splat_bin": 1,
-               "splat_additive": 1, "spconv_table": 3, "spconv": 3}
+               "splat_additive": 1, "spconv_table": 3, "spconv": 3,
+               "bn_epilogue": 74}
 V1_TRAIN_LAUNCHES = {**V1_LAUNCHES, "dcn_bwd": 26, "deformable_bin": 4,
                      "deformable_bwd": 4, "splat_bwd_additive": 1,
-                     "spconv_table": 0, "spconv": 0}
+                     "spconv_table": 0, "spconv": 0, "bn_epilogue": 0}
+# the frozen BNs (profiling's counters bn_fused, bn_eager) of a frame and of
+# a train step, by config version: a ResNet-101 tower's 104 (the stem's,
+# three a block, four downsamples'), of which a frame's epilogue applies 78
+# (K1 the 26 DCN blocks' bn2), and SECONDFPN's 4 (GaussianFormer-2's
+# lifter tower); a step applies every one in PyTorch
+BN_FRAME = {2: (2 * 78 + 4, 0), 1: (78, 0)}
+BN_STEP = {2: (0, 2 * 104 + 4), 1: (0, 104)}
 # gs144000 supervises all four refine layers: four splats and backwards
 V1_ALL_TRAIN_LAUNCHES = {**V1_TRAIN_LAUNCHES, "splat_bin": 4,
                          "splat_additive": 4, "splat_bwd_additive": 4}
@@ -381,8 +394,9 @@ def main() -> int:
         return 1
     from gaussianformer_tpu_torch.configs import get_config
     from gaussianformer_tpu_torch.data.synthetic import synthetic_batch
-    from gaussianformer_tpu_torch.kernels import (dcn, deformable, fps,
-                                                  spconv, splat)
+    from gaussianformer_tpu_torch.kernels import (bn_epilogue, dcn,
+                                                  deformable, fps, spconv,
+                                                  splat)
     from gaussianformer_tpu_torch.models.segmentor import build_segmentor
     from gaussianformer_tpu_torch.ops import splat as ops_splat
 
@@ -412,7 +426,8 @@ def main() -> int:
 
     mods = types.SimpleNamespace(dcn=dcn, fps=fps, deformable=deformable,
                                  splat=splat, spconv=spconv, lib=_lib,
-                                 ops_splat=ops_splat)
+                                 ops_splat=ops_splat,
+                                 bn_epilogue=bn_epilogue)
 
     # ---- 12. the port's bench, first, as a process of its own runs it
     bench = bench_phase(mods)
@@ -434,6 +449,9 @@ def main() -> int:
                     ("deformable", cfg.total_anchors * 7),
                     ("splat", "prob", cfg.total_anchors),
                     ("spconv", cfg.total_anchors)):
+            rows.append(check_kernel(key, captured(fwd["calls"], key),
+                                     fwd["launches"], mods))
+        for key in largest_bn_calls(fwd["calls"]):
             rows.append(check_kernel(key, captured(fwd["calls"], key),
                                      fwd["launches"], mods))
     # the flagship's K4 and K7 inputs, which phase 18 runs again in the
@@ -609,8 +627,25 @@ def capture_specs(mods, backward: bool):
          lambda pts, gdata, *a, **k: ("splat", a[-1], gdata.shape[0])),
         (mods.spconv, "submanifold_conv3d_cuda",
          lambda x, *a, **k: ("spconv", x.shape[0])),
+        (mods.bn_epilogue, "bn_epilogue_cuda",
+         lambda a, bn_a, b=None, bn_b=None: (
+             "bn_epilogue", bn_form(b, bn_b), a.numel())),
         pack,
     ]
+
+
+def bn_form(b, bn_b) -> str:
+    """The epilogue's form: a BN and ReLU, or a block's end with the
+    identity or the downsample conv's BN'd output."""
+    return "relu" if b is None else "identity" if bn_b is None \
+        else "downsample"
+
+
+def largest_bn_calls(calls):
+    """The keys of the largest captured epilogue call of each form."""
+    keys = [k for k in calls if k[0] == "bn_epilogue"]
+    return [max((k for k in keys if k[1] == form), key=lambda k: k[2])
+            for form in ("relu", "identity", "downsample")]
 
 
 def captured(calls, key):
@@ -643,7 +678,8 @@ def frame_phase(cfg, model, batch, mods, expected, frames):
     log(f"# {cfg.name} warm-up frame: {time.perf_counter() - t0:.2f} s")
 
     mods.lib.reset_launches()
-    out = frame(1)
+    with traced_bns(cfg.name, "frame", BN_FRAME[cfg.version]):
+        out = frame(1)
     torch.cuda.synchronize()
     launches = dict(mods.lib.LAUNCHES)
     log(f"# {cfg.name} launches in one frame: {launches}")
@@ -685,6 +721,25 @@ def frame_phase(cfg, model, batch, mods, expected, frames):
     return dict(calls=cap.calls, launches=launches, frame_ms=frame_ms,
                 frame_wall_ms=wall_ms, frame_peak_gib=peak_gib,
                 frame_idle_share=idle, frame_busy_ms=busy)
+
+
+@contextlib.contextmanager
+def traced_bns(name, what, expected):
+    """Trace what the block runs (``utils/profiling``) and raise unless its
+    counters ``bn_fused`` and ``bn_eager`` read ``expected``."""
+    from gaussianformer_tpu_torch.utils import profiling
+    profiling.enable()
+    try:
+        yield
+    finally:
+        profiling.disable()
+    c = profiling.collect()["counters"]
+    got = (c.get("bn_fused", 0), c.get("bn_eager", 0))
+    log(f"# {name} frozen BNs in one {what}: bn_fused {got[0]}, bn_eager "
+        f"{got[1]}")
+    if got != expected:
+        raise RuntimeError(f"{name}: bn_fused / bn_eager {got} != "
+                           f"{expected}")
 
 
 def idle_share(run, unprofiled_ms, what):
@@ -1914,6 +1969,9 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
     elif name == "spconv":
         row, err, tol, ms, plain_ms, flops, nbytes = check_spconv(
             fn, args, launches, mods, suffix)
+    elif name == "bn_epilogue":
+        row, err, tol, ms, plain_ms, flops, nbytes = check_bn_epilogue(
+            fn, args, key[1], launches, mods, suffix)
     elif key[1] == "additive":
         points, gdata, box, sem_aug, grid, variant = args
         cap = path_capacity(kw)
@@ -2031,6 +2089,9 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
                  f"{row['taps_skipped']} of {row['tiles'] * row['taps']} "
                  f"(tile, tap) pairs skipped; fp32 gather form "
                  f"{row['fp32_err']:.3e} (tol {row['fp32_tol']:.3e})")
+    elif name == "bn_epilogue":
+        extra = (f"; {row['bound_share']:.3f} of the bytes bound; bit-equal "
+                 f"to plain on {row['bit_equal_share']:.6f} of elements")
     elif name == "fps":
         extra = (f"; {row['us_per_step']:.4f} us a selection, latency floor "
                  f"{row['floor_ms']:.4f} ms ({row['floor_us_per_step']:.4f} "
@@ -2042,6 +2103,37 @@ def check_kernel(key, call, launches, mods, tag="", hold_ties=False):
         raise RuntimeError(f"{row['name']} disagrees with its plain "
                            f"version: {err} > {tol}")
     return row
+
+
+def check_bn_epilogue(fn, args, form, launches, mods, suffix):
+    """The frozen-BN epilogue on one captured call (the largest of its
+    form): against its plain version (the same fp32 arithmetic, one rounding
+    to bf16: at most a rounding flip, BF16_TOL of max|ref|), with the share
+    of elements bit-equal to it, and a second call's bits. Its bytes: the
+    conv's output (and the residual) read once, the output written once;
+    3-6 fp32 operations an element. Returns check_kernel's (row, err, tol,
+    ms, plain_ms, flops, nbytes)."""
+    got = fn(*args)
+    held_repeat(f"bn_epilogue_{form}{suffix}", [got], [fn(*args)])
+    ref, plain_ms = timed(lambda: mods.bn_epilogue.bn_epilogue_plain(*args))
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = BF16_TOL * ref.float().abs().max().item()
+    bit_equal = (got == ref).float().mean().item()
+    del ref
+    ms = cuda_ms(lambda: fn(*args), 20)
+    a = args[0]
+    n = a.numel()
+    tensors = 1 if form == "relu" else 2
+    nbytes = (tensors + 1) * n * 2
+    flops = n * {"relu": 3, "identity": 4, "downsample": 6}[form]
+    row = dict(name=f"bn_epilogue_{form}{suffix}", route="cuda",
+               source="gaussianformer_tpu_torch/csrc/bn_epilogue.cu",
+               replaces="none (the JAX package leaves the BN, residual and "
+                        "ReLU to XLA's fusion into the convs)",
+               launches=launches["bn_epilogue"], shape=list(a.shape),
+               bit_equal_share=bit_equal, repeat_bit_equal=True,
+               bound_share=nbytes / PEAK_BYTES * 1e3 / ms, report=True)
+    return row, err, tol, ms, plain_ms, flops, nbytes
 
 
 def check_spconv(fn, args, launches, mods, suffix):
@@ -2477,7 +2569,8 @@ def train_phase(cfg, model, batch, mods, expected, steps, loss_fn=None):
         f"{vals}")
 
     mods.lib.reset_launches()
-    vals = step("counted")
+    with traced_bns(cfg.name, "train step", BN_STEP[cfg.version]):
+        vals = step("counted")
     torch.cuda.synchronize()
     launches = dict(mods.lib.LAUNCHES)
     log(f"# {cfg.name} launches in one train step: {launches}; {vals}")

@@ -93,4 +93,16 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
   }
 }
 
+// The SMs of the current device (read once a process).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
 }  // namespace gf

@@ -317,17 +317,6 @@ spconv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
-
 template <int BM>
 int launch(const void* x, const void* coords, const void* table,
            const void* weight, const void* bias, void* out, void* stats,
@@ -369,7 +358,7 @@ GF_EXPORT int gf_spconv_table(const void* coords, int P, int X, int Y, int Z,
 // once (each W slice then serves twice the rows), else 64.
 GF_EXPORT int gf_spconv_block_rows(int P, int Cout) {
   const long tiles = (P + 127) / 128 * (long)((Cout + BN - 1) / BN);
-  return tiles >= 2L * sm_count() ? 128 : 64;
+  return tiles >= 2L * gf::sm_count() ? 128 : 64;
 }
 
 // x [P, C_in] bf16; coords int32 [P, 3]; table from gf_spconv_table; weight

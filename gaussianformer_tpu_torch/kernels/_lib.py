@@ -40,7 +40,7 @@ LAUNCHES = {"dcn": 0, "fps": 0, "deformable": 0, "splat_bin": 0,
             "splat_bwd_additive": 0, "splat_points_bin": 0,
             "splat_points": 0, "splat_points_additive": 0,
             "splat_points_bwd": 0, "splat_points_bwd_additive": 0,
-            "spconv_table": 0, "spconv": 0}
+            "spconv_table": 0, "spconv": 0, "bn_epilogue": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -225,6 +225,9 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.gf_spconv_forward.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I,
                                      I, P]
     so.gf_spconv_forward.restype = I
+    so.gf_bn_epilogue.argtypes = [P, P, P, P, P, P, F, P, P, P, P, F, P, L,
+                                  I, P]
+    so.gf_bn_epilogue.restype = I
     return so
 
 

@@ -2,9 +2,12 @@
 (gaussianformer_tpu/models/backbone/resnet.py; mmseg ResNet names).
 
 With gradients off (inference) each DCN block's bn2 + ReLU is fused into
-the DCN kernel's epilogue; with gradients on (training, ``fuse_dcn_epilogue
-= not training`` in the JAX package) the DCN runs as the differentiable
-K1/K5 pair and bn2 + ReLU follow in PyTorch. The frozen BNs keep their
+the DCN kernel's epilogue, and every other frozen BN, with the residual add
+and the ReLU that follow it, runs as one pass over its conv's output
+(``kernels/bn_epilogue.py``: on the CPU, or in bf16 on the card); with
+gradients on (training, ``fuse_dcn_epilogue = not training`` in the
+JAX package) the DCN runs as the differentiable K1/K5 pair and the BNs,
+the residual and the ReLUs run as PyTorch's passes. The frozen BNs keep their
 statistics but train their scale and bias, as the JAX ``FrozenBatchNorm``
 params do. The stem is a plain 7x7/2 conv. Parameters stay fp32; convs run
 in the input's dtype (bf16 on the card), so the casts match the JAX
@@ -18,8 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...kernels import bn_epilogue as epi
 from ...kernels.dcn import DeformConv2dFunction, deform_conv2d
-from ...utils.profiling import span
+from ...utils.profiling import count, span
 
 ARCH_SETTINGS = {
     26: (1, 1, 1, 1),     # tiny bottleneck (tests)
@@ -48,12 +52,18 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def stats(self):
+        """(weight, bias, running_mean, running_var, eps): the BN as the
+        epilogue takes it."""
+        return (self.weight, self.bias, self.running_mean, self.running_var,
+                self.eps)
+
     def coeffs(self):
         """(inv, shift) with bn(x) = x * inv + shift, in fp32."""
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return inv, self.bias - self.running_mean * inv
+        return epi.coefficients(*self.stats())
 
     def forward(self, x):
+        count("bn_eager", 1)
         inv, shift = self.coeffs()
         return (x * inv.to(x.dtype)[:, None, None]
                 + shift.to(x.dtype)[:, None, None])
@@ -109,14 +119,28 @@ class Bottleneck(nn.Module):
             FrozenBatchNorm2d(planes * 4)) if downsample else None)
 
     def forward(self, x):
+        if epi.applies(x):
+            return self._fused(x)
         out = torch.relu(self.bn1(self.conv1(x)))
-        if self.with_dcn and not torch.is_grad_enabled():
-            out = self.conv2(out, epilogue=self.bn2.coeffs())
-        else:
-            out = torch.relu(self.bn2(self.conv2(out)))
+        out = torch.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         idn = x if self.downsample is None else self.downsample(x)
         return torch.relu(out + idn)
+
+    def _fused(self, x):
+        """The forward with each BN in the epilogue: one pass a conv, the
+        block's end (bn3, the downsample's BN, the residual, the ReLU) in
+        one."""
+        out = epi.bn_epilogue(self.conv1(x), self.bn1.stats())
+        if self.with_dcn:
+            out = self.conv2(out, epilogue=self.bn2.coeffs())
+        else:
+            out = epi.bn_epilogue(self.conv2(out), self.bn2.stats())
+        out = self.conv3(out)
+        if self.downsample is None:
+            return epi.bn_epilogue(out, self.bn3.stats(), x)
+        conv, bn = self.downsample
+        return epi.bn_epilogue(out, self.bn3.stats(), conv(x), bn.stats())
 
 
 class ResNet(nn.Module):
@@ -151,7 +175,10 @@ class ResNet(nn.Module):
         x = x.to(self.dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        x = torch.relu(self.bn1(self.conv1(x)))
+        if epi.applies(x):
+            x = epi.bn_epilogue(self.conv1(x), self.bn1.stats())
+        else:
+            x = torch.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for i in range(len(self.out_channels)):

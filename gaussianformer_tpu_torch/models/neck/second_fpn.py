@@ -1,6 +1,7 @@
 """SECOND-style FPN (gaussianformer_tpu/models/neck/second_fpn.py; mmdet3d
 SECONDFPN names): a fractional upsample stride becomes a strided conv, an
-integer one a transposed conv; each branch is conv -> BN -> ReLU; the
+integer one a transposed conv; each branch is conv -> BN -> ReLU (with
+gradients off, BN and ReLU in one pass: ``kernels/bn_epilogue.py``); the
 branches are concatenated on channels."""
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...kernels import bn_epilogue as epi
 from ..backbone.resnet import Conv2d, FrozenBatchNorm2d
 
 
@@ -40,7 +42,9 @@ class SECONDFPN(nn.Module):
         self.deblocks = nn.ModuleList(blocks)
 
     def forward(self, inputs):
-        outs = [blk(x) for blk, x in zip(self.deblocks, inputs)]
+        outs = [epi.bn_epilogue(blk[0](x), blk[1].stats())
+                if epi.applies(x) else blk(x)
+                for blk, x in zip(self.deblocks, inputs)]
         mh = min(o.shape[2] for o in outs)
         mw = min(o.shape[3] for o in outs)
         return torch.cat([o[:, :, :mh, :mw] for o in outs], dim=1)

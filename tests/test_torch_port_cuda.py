@@ -16,7 +16,8 @@ K7 at finer, shuffled, outside, crowded and odd-sized point sets, and at
 the raster grid's own points against the raster mode); the fused
 submanifold conv and its voxel table at the gs144000 and Prob-64 shapes and
 at narrow, ragged ones, with shared voxels, anchors clamped to the border
-and a row tile whose every tap is empty; and the backward
+and a row tile whose every tap is empty; the frozen-BN epilogue in its
+three forms at a tower's block-end shapes and in a bf16 tower; and the backward
 kernels K5-K7 against their plain backward versions on random cotangents.
 The splat kernels K4 and K7 (and their bins), K5, K6 and the spconv give
 the same bits on every call, and the calls of K5 and K6 make no host sync. Marked ``cuda``; they skip
@@ -34,8 +35,8 @@ import math
 import pytest
 import torch
 
-from gaussianformer_tpu_torch.kernels import (_lib, dcn, deformable, fps,
-                                              spconv, splat)
+from gaussianformer_tpu_torch.kernels import (_lib, bn_epilogue, dcn,
+                                              deformable, fps, spconv, splat)
 from gaussianformer_tpu_torch.ops.covariance import build_covariance_inverse6
 from gaussianformer_tpu_torch.ops.sparse_conv import voxel_indices
 from gaussianformer_tpu_torch.utils import profiling
@@ -1176,3 +1177,64 @@ def test_spconv_kernel_skips_empty_taps(gen):
     assert (nb[:64] < 0).all()
     assert counters["spconv_pairs"] == (nb >= 0).sum().item()
     assert counters["spconv_taps_skipped"] == empty_taps >= 125
+
+
+#: the block ends of a Prob-64 tower's layer1 and layer4 (6 cameras at 864
+#: x 1600), and a ragged width whose C / 8 does not divide a block
+BN_SHAPES = [(6, 256, 216, 400), (6, 2048, 27, 50), (3, 136, 7, 9)]
+
+
+def _bn_stats(gen, c, eps):
+    return (randn(gen, c).abs() + 0.5, randn(gen, c), randn(gen, c),
+            randn(gen, c).abs() + 0.1, eps)
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES)
+@pytest.mark.parametrize("form", ["relu", "identity", "downsample"])
+def test_bn_epilogue_kernel_matches_plain(gen, form, shape):
+    """The frozen-BN epilogue on bf16 channels-last tensors against its
+    plain version (the same fp32 arithmetic, one rounding to bf16: at most a
+    rounding flip, BF16_TOL), twice the same bits, one launch a call."""
+    c = shape[1]
+    a = randn(gen, *shape, scale=3.0).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    b = randn(gen, *shape, scale=3.0).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    args = {"relu": (a, _bn_stats(gen, c, 1e-5)),
+            "identity": (a, _bn_stats(gen, c, 1e-5), b),
+            "downsample": (a, _bn_stats(gen, c, 1e-5), b,
+                           _bn_stats(gen, c, 1e-3))}[form]
+    _lib.reset_launches()
+    got = bn_epilogue.bn_epilogue_cuda(*args)
+    again = bn_epilogue.bn_epilogue_cuda(*args)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["bn_epilogue"] == 2
+    assert torch.equal(got, again)
+    assert got.dtype == torch.bfloat16 and got.shape == a.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    ref = bn_epilogue.bn_epilogue_plain(*args)
+    _close(got.float(), ref.float(), BF16_TOL, f"{form} {shape}")
+    assert (got == 0).any() and (got > 0).any()
+
+
+def test_bn_epilogue_in_the_tower(gen):
+    """A bf16 ResNet-26 (DCN in stages 3-4) on the card: under inference
+    mode its 11 epilogue launches (the stem, 4 bn1, 2 bn2 outside the DCN
+    blocks, 4 block ends) against the same module with gradients on, whose
+    PyTorch passes round to bf16 after each operation: within 2^-5 of each
+    stage output's largest value."""
+    from gaussianformer_tpu_torch.models.backbone.resnet import ResNet
+    from gaussianformer_tpu_torch.models.segmentor import init_random_
+    tower = ResNet(26, 16, (False, False, True, True), dtype=torch.bfloat16)
+    with torch.no_grad():
+        init_random_(tower, torch.Generator().manual_seed(0))
+    tower = tower.cuda().eval()
+    imgs = randn(gen, 2, 3, 128, 192)
+    _lib.reset_launches()
+    with torch.inference_mode():
+        fused = tower(imgs)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["bn_epilogue"] == 11 and _lib.LAUNCHES["dcn"] == 2
+    eager = tower(imgs)
+    for f, e in zip(fused, eager):
+        _close(f.float(), e.detach().float(), 2.0 ** -5, "tower")

@@ -294,8 +294,14 @@ def test_tiny_frame_and_step_record_every_span(name):
     first_step = next(i for i, r in enumerate(recs) if r[0] == "step")
     assert {r[2] for r in recs[:first_step]} == {1}
     assert {r[2] for r in recs[first_step:]} == {2}
-    # the CPU runs the plain versions: no kernel launch, no bins, no read
-    assert got["launches"] == {} and got["counters"] == {}
+    # the CPU runs the plain versions: no kernel launch, no bins, no read.
+    # The frame's frozen BNs run in the epilogue (the DCN blocks' bn2 in
+    # K1's), the step's in PyTorch: 17 a ResNet-26 tower, 4 in SECONDFPN
+    towers, fpn = (2, 4) if cfg.version == 2 else (1, 0)
+    dcn = sum(cfg.stage_with_dcn)
+    assert got["launches"] == {}
+    assert got["counters"] == {"bn_fused": towers * (17 - dcn) + fpn,
+                               "bn_eager": towers * 17 + fpn}
 
 
 @pytest.mark.parametrize("name,calls", [("gs25600_solid_tiny", 1),
